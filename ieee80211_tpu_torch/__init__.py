@@ -1,0 +1,24 @@
+"""ieee80211_tpu_torch — the PyTorch + CUDA port of ieee80211_tpu.
+
+The JAX package `ieee80211_tpu` stays the reference that this port is held
+against. This package mirrors its layout so that each module's counterpart
+is easy to find:
+
+  * utils/     real <-> complex boundary helpers (riq.py)
+  * ops/       batched PHY ops: coding, sync, demod (plain PyTorch)
+  * ops/cuda/  wrappers of the hand-written Hopper kernels (where the JAX
+               package has ops/pallas/)
+  * csrc/      the kernels' CUDA C++ sources, built with nvcc at first use
+  * models/    the flagship fixed-config receiver (`RxPipeline`)
+
+It reuses the JAX package's jax-free modules (`ieee80211_tpu.specs`,
+`ieee80211_tpu.tx.golden`, `ieee80211_tpu.mac`) instead of copying them, and
+never imports jax: the machine with the GPU has none.
+"""
+import torch
+
+# The DFT and banded moving-sum matmuls feed the plateau sync and the LLRs:
+# float32 products stay in full float32 on the card (TF32 keeps about three
+# decimal digits).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

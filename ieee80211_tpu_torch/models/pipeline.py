@@ -1,0 +1,193 @@
+"""Fixed-config end-to-end receive step: trigger-relative windows in,
+descrambled DATA bits out.
+
+Port of the flagship receiver ieee80211_tpu/models/pipeline.py
+(`make_rx_step` :28, `RxPipeline` :121). Sync, CFO, channel estimation,
+L-SIG validation, per-symbol demod and the 64-state Viterbi run batched on
+the device of the input; the two window slices and the two Viterbi decodes
+of a step launch the hand-written CUDA kernels when that device is a GPU.
+
+The receive path has no trained weights: its state is the constant tables
+that `tables_from_numpy` builds, held as registered buffers.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from ieee80211_tpu.specs import BW, CR, F, Mod, tables
+from ieee80211_tpu.specs import interleaver as ilv
+
+from ..ops import coding, demod, sync
+from ..utils.riq import r2c
+
+OFF_LSIG = 128
+OFF_NLLTF = 448
+
+
+def _pilot_index(mod: Mod) -> int:
+    """Pilot-polarity index of the first DATA symbol."""
+    return {F.L: 1, F.HT: 3}.get(mod.fmt, 4)
+
+
+def tables_from_numpy(mod: Mod, n_sym: int) -> Dict[str, np.ndarray]:
+    """Every constant table of the receive step for (mod, n_sym), as numpy.
+
+    Built by the same numpy helpers as the JAX package (copied into the
+    port's ops modules). Index tables are int64; complex references are
+    complex64, as JAX holds them.
+    """
+    q = tables.NFFT[mod.bw] // 64
+    legacy = mod.fmt == F.L
+    w0, w1 = coding._radix_tables(coding.RADIX)
+    dft_re, dft_im = demod._dft_mats(64 * q)
+    # legacy-band duplicated SIG indexing (wide bw): the copies are combined
+    d20 = np.asarray(tables.DATA_GRID[(BW.BW20, True)])
+    p20 = np.asarray(tables.PILOT_GRID[(BW.BW20, True)])
+    out = {
+        "band": sync.ltf_band_mat(q),
+        "dft_re": dft_re,
+        "dft_im": dft_im,
+        "ltf_ref_l": demod.ltf_ref_grid(mod.bw, True),
+        "sig_data_idx": np.concatenate([d20 + 64 * c for c in range(q)]),
+        "sig_pilot_idx": np.concatenate([p20 + 64 * c for c in range(q)]),
+        "sig_pilot_ref": (np.tile(tables.PILOT_L, q)[None]
+                          * tables.PILOT_POLARITY[0:1, None]),
+        "sig_perm": ilv.sig_rx_perm(),
+        "vit_w0": w0,
+        "vit_w1": w1,
+        "pilot_ref": demod.pilot_refs(mod, n_sym, _pilot_index(mod)),
+        "pilot_idx": tables.PILOT_GRID[(mod.bw, legacy)],
+        "data_idx": tables.DATA_GRID[(mod.bw, legacy)],
+        "rx_perm": ilv.rx_perm(mod, 0),
+        "prbs": coding._prbs_tiled(n_sym * mod.nDBPS),
+        "seed_inv": coding._seed_from_first7(),
+    }
+    if not legacy:
+        out["ltf_ref_nl"] = demod.ltf_ref_grid(mod.bw, False)
+    for name, arr in out.items():
+        arr = np.asarray(arr)
+        if np.iscomplexobj(arr):
+            arr = arr.astype(np.complex64)
+        elif np.issubdtype(arr.dtype, np.floating):
+            arr = arr.astype(np.float32)
+        elif name.endswith(("_idx", "_perm")):
+            arr = arr.astype(np.int64)
+        out[name] = np.ascontiguousarray(arr)
+    return out
+
+
+class RxStep(nn.Module):
+    """The receive step for a static (Mod, n_sym) config (any bw).
+
+    forward(x2: [B, W, 2] float32 I/Q, t0: [B] int32) -> dict with
+    bits [B, n_bits] int32 descrambled data bits, ltf_start [B] int32,
+    cfo [B] float32, snr [B] float32, lsig_ok [B] bool: the keys and dtypes
+    of the JAX step.
+    """
+
+    def __init__(self, mod: Mod, n_sym: int):
+        super().__init__()
+        self.mod = mod
+        self.n_sym = n_sym
+        self.q = tables.NFFT[mod.bw] // 64
+        for name, arr in tables_from_numpy(mod, n_sym).items():
+            self.register_buffer(name, torch.from_numpy(arr))
+
+    def data_offset(self) -> int:
+        mod = self.mod
+        if mod.fmt == F.L:
+            off = OFF_LSIG + 80
+        elif mod.fmt == F.HT:
+            off = OFF_NLLTF + 80 * mod.nLTF
+        else:
+            off = OFF_NLLTF + 80 * mod.nLTF + 80
+        return off * self.q
+
+    def z_len(self) -> int:
+        """Length of the packet-aligned window z: LTF through DATA."""
+        return 32 * self.q + self.data_offset() + 80 * self.q * self.n_sym
+
+    def _fft(self, x: torch.Tensor) -> torch.Tensor:
+        return demod.fft_syms(x, self.dft_re, self.dft_im)
+
+    def forward(self, x2: torch.Tensor, t0: torch.Tensor):
+        mod, q, n_sym = self.mod, self.q, self.n_sym
+        # data-symbol window shift 4q, not the reference's 8q: it re-centres
+        # the cyclic-prefix margin for multipath (CLAUDE.md, "RX
+        # correctness (round 5)"); clean-channel decodes are unchanged
+        nfft, gi, sh = 64 * q, 16 * q, 4 * q
+        ltf_start, cfo, snr = sync.sync_front_iq(x2, t0, self.band, q=q)
+
+        # ONE aligned window slice; everything downstream is static slicing
+        # of z (anchor = ltf_start - 16q). The CFO ramp's constant phase
+        # offset vs absolute time cancels in equalization.
+        zlen = self.z_len()
+        z = r2c(sync.batch_slice_iq(x2, ltf_start - gi, zlen))
+        z = z * sync.cfo_ramp(cfo, zlen)
+
+        ltf_t = demod.static_symbol_windows(z, 0, 2, nfft=nfft, gi=gi,
+                                            shift=sh, stride=nfft)
+        lchan = demod.legacy_chan_est(self._fft(ltf_t), self.ltf_ref_l)
+
+        # L-SIG validation (always decoded, as in the reference receiver)
+        g = self._fft(demod.static_symbol_windows(
+            z, gi + OFF_LSIG * q, 1, nfft=nfft, gi=gi, shift=sh))
+        eq = demod.equalize(g, lchan)
+        ph = demod.pilot_phase(eq, self.sig_pilot_ref, self.sig_pilot_idx)
+        eq = (eq / ph[..., None])[:, 0]
+        tones = eq[:, self.sig_data_idx]
+        tones = tones.reshape(tones.shape[0], q, 48).sum(dim=1)
+        lsig_llr = tones.real[:, self.sig_perm]
+        lsig_bits = coding.viterbi_decode(lsig_llr, CR.CR12, 24,
+                                          self.vit_w0, self.vit_w1)
+        lsig_ok = (lsig_bits[:, :17].sum(dim=-1) % 2) == lsig_bits[:, 17]
+
+        # DATA field
+        if mod.fmt == F.L:
+            chan = lchan
+        else:
+            nl = demod.static_symbol_windows(z, gi + OFF_NLLTF * q, 1,
+                                             nfft=nfft, gi=gi, shift=sh)
+            chan = demod.nonlegacy_chan_est_siso(self._fft(nl)[:, 0],
+                                                 self.ltf_ref_nl)
+        gd = self._fft(demod.static_symbol_windows(
+            z, gi + self.data_offset(), n_sym, nfft=nfft, gi=gi, shift=sh))
+        llrs = demod.demod_data_siso(gd, chan, mod, self.pilot_ref,
+                                     self.pilot_idx, self.data_idx,
+                                     self.rx_perm)
+        bits = coding.viterbi_decode(llrs, mod.cr, n_sym * mod.nDBPS,
+                                     self.vit_w0, self.vit_w1)
+        scr = coding.descramble(bits, self.prbs, self.seed_inv)
+        return dict(bits=scr, ltf_start=ltf_start, cfo=cfo, snr=snr,
+                    lsig_ok=lsig_ok)
+
+
+class RxPipeline(nn.Module):
+    """Fixed-config receiver: `step(x2, t0)` runs the receive step on the
+    module's device (default the CPU)."""
+
+    def __init__(self, mod: Mod, n_sym: int, psdu_len: int,
+                 device=None):
+        super().__init__()
+        self.mod = mod
+        self.n_sym = n_sym
+        self.psdu_len = psdu_len
+        self.step = RxStep(mod, n_sym).to(device)
+
+    def window_len(self) -> int:
+        base = 192 + 128 + 80  # sync slack + LTF + L-SIG
+        if self.mod.fmt == F.L:
+            extra = 0
+        elif self.mod.fmt == F.HT:
+            extra = 160 + 80 + 80 * self.mod.nLTF
+        else:
+            extra = 160 + 80 + 80 * self.mod.nLTF + 80
+        q = tables.NFFT[self.mod.bw] // 64
+        return (base + extra + 80 * self.n_sym + 80) * q
+
+    def forward(self, x2: torch.Tensor, t0: torch.Tensor):
+        return self.step(x2, t0)

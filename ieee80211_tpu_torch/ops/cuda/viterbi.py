@@ -1,0 +1,64 @@
+"""Wrapper of the radix-4 soft-Viterbi CUDA kernel (csrc/viterbi.cu).
+
+Replaces the TPU kernel ieee80211_tpu/ops/pallas/viterbi.py
+(`viterbi_decode_pallas` :311, `_build_call` :263). Depuncturing and the
+padding to a multiple of k stay in PyTorch (ops/coding.py), as they stay in
+JAX around the TPU kernel; the kernel takes the depunctured pairs.
+"""
+from __future__ import annotations
+
+import torch
+
+from .build import check, library
+
+LAUNCHES = 0   # kernel launches so far: a run can show that it went through
+K = 4          # the kernel's radix
+
+
+def _select_masks(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """[64, 16] uint8: bit (2j + c) set where coded bit c of step j on path
+    p into state s is 1 (the weights of `_radix_tables(4)`)."""
+    sel = torch.stack([w0, w1], dim=-1).reshape(64, 1 << K, 2 * K) != 0
+    weights = torch.arange(2 * K, device=sel.device, dtype=torch.int32)
+    return (sel.to(torch.int32) << weights).sum(dim=-1).to(torch.uint8)
+
+
+def viterbi_pairs_cuda(lp: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
+                       renorm: int) -> torch.Tensor:
+    """Decode depunctured pairs [B, T, 2] float32 (T a multiple of 4) on the
+    card: bits [B, T] int32, equal bit for bit to
+    `ops.coding.viterbi_pairs_plain(lp, w0, w1, renorm)`."""
+    global LAUNCHES
+    if lp.device.type != "cuda":
+        raise ValueError(f"viterbi kernel needs a CUDA tensor, got "
+                         f"{lp.device}")
+    if lp.dtype != torch.float32 or lp.dim() != 3 or lp.shape[2] != 2:
+        raise ValueError(f"expected float32 [B, T, 2], got {lp.dtype} "
+                         f"{tuple(lp.shape)}")
+    if not lp.is_contiguous():
+        raise ValueError("LLR pairs must be contiguous")
+    if tuple(w0.shape) != (64, 1 << K, K) or w1.shape != w0.shape:
+        raise ValueError(f"the kernel is radix {K}: tables must be "
+                         f"[64, {1 << K}, {K}], got {tuple(w0.shape)}")
+    if w0.device != lp.device or w1.device != lp.device:
+        raise ValueError("radix tables must lie on the LLRs' device")
+    b, t_pad, _ = lp.shape
+    if t_pad % K:
+        raise ValueError(f"trellis length {t_pad} is not a multiple of {K}")
+    if renorm < 1:
+        raise ValueError(f"renorm period must be >= 1, got {renorm}")
+    n_blk = t_pad // K
+    bits = torch.empty((b, t_pad), dtype=torch.int32, device=lp.device)
+    if b == 0 or n_blk == 0:
+        return bits
+    masks = _select_masks(w0, w1)
+    # survivor decisions: one byte per state per block, in device memory
+    dec = torch.empty((b, n_blk, 64), dtype=torch.uint8, device=lp.device)
+    lib = library()
+    with torch.cuda.device(lp.device):
+        err = lib.viterbi_r4_launch(
+            lp.data_ptr(), masks.data_ptr(), dec.data_ptr(), bits.data_ptr(),
+            b, n_blk, renorm, torch.cuda.current_stream().cuda_stream)
+    check(lib, err, "viterbi_r4_launch")
+    LAUNCHES += 1
+    return bits

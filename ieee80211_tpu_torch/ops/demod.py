@@ -1,0 +1,200 @@
+"""Batched OFDM demodulation ops (PyTorch), SISO half: DFT, channel
+estimate, ZF equalize, pilot tracking, LLR demap, deinterleave.
+
+Port of ieee80211_tpu/ops/demod.py (`fft_syms` :42,
+`static_symbol_windows` :91, `pilot_refs` :113, `pilot_phase` :119,
+`demap_llr` :138, `ltf_ref_grid` :216, `legacy_chan_est` :227,
+`nonlegacy_chan_est_siso` :236, `equalize` :245, `_demod_data_tail` :393,
+`demod_data_siso` :437). Constant tables come in as tensors on the data's
+device (the receive step holds them as buffers), so a step copies nothing
+from the host.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ieee80211_tpu.specs import BW, M, Mod, tables
+
+# ---------------------------------------------------------------------------
+# FFT (shifted-grid convention, matching specs/tables.py)
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def _dft_mats(n: int):
+    """Shifted-output DFT as real matrices (W_re, W_im), each [n, n]:
+    X_shifted = x @ W^T with W[k', t] = exp(-2j*pi*(k'-n/2)*t/n)."""
+    k = np.arange(n) - n // 2
+    t = np.arange(n)
+    w = np.exp(-2j * np.pi * np.outer(k, t) / n)
+    return (np.ascontiguousarray(np.real(w).T.astype(np.float32)),
+            np.ascontiguousarray(np.imag(w).T.astype(np.float32)))
+
+
+def fft_syms(x: torch.Tensor, wr: torch.Tensor,
+             wi: torch.Tensor) -> torch.Tensor:
+    """Time symbols [..., N] complex -> shifted-order frequency grid
+    [..., N], as a DFT matmul with (wr, wi) = `_dft_mats(N)` (whether cuFFT
+    serves better on the card is left to measurement)."""
+    xr, xi = x.real, x.imag
+    out_r = torch.matmul(xr, wr) - torch.matmul(xi, wi)
+    out_i = torch.matmul(xr, wi) + torch.matmul(xi, wr)
+    return torch.complex(out_r, out_i)
+
+
+def static_symbol_windows(z: torch.Tensor, off: int, n_sym: int,
+                          nfft: int = 64, gi: int = 16, shift: int = 8,
+                          stride: Optional[int] = None) -> torch.Tensor:
+    """OFDM symbol windows of a packet-aligned window z [B, Z]: symbol i
+    starts at off + i*stride (stride defaults to gi + nfft; the legacy LTF's
+    two repetitions use stride = nfft) and its data window is taken `shift`
+    samples into the GI. Pure static slicing. Returns [B, n_sym, nfft]."""
+    sym = stride if stride is not None else (nfft + gi)
+    s0 = off + gi - shift
+    seg = z[:, s0:s0 + sym * n_sym]
+    return seg.reshape(z.shape[0], n_sym, sym)[..., :nfft]
+
+
+# ---------------------------------------------------------------------------
+# pilot tracking
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def pilot_refs(mod: Mod, n_sym: int, pidx0: int, iss: int = 0) -> np.ndarray:
+    """Expected pilot values per symbol [n_sym, nSP] (polarity + rotation)."""
+    from ieee80211_tpu.tx.golden import pilot_sequence
+    return pilot_sequence(mod, n_sym, iss, pidx0=pidx0)
+
+
+def pilot_phase(sym_grid: torch.Tensor, pilot_ref: torch.Tensor,
+                pilot_bins: torch.Tensor) -> torch.Tensor:
+    """Common-phase unit phasor per symbol from pilot tones.
+
+    sym_grid: [B, S, nfft] equalized grids; pilot_ref: [S, nP];
+    pilot_bins: [nP] int64. Returns [B, S] unit phasors.
+    """
+    pil = sym_grid[..., pilot_bins]                       # [B, S, nP]
+    acc = torch.sum(pil * torch.conj(pilot_ref)[None], dim=-1)
+    mag = torch.abs(acc)
+    return acc / torch.where(mag > 0, mag, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# LLR demap (piecewise-linear folds)
+# ---------------------------------------------------------------------------
+
+_AXIS_BITS = {M.QPSK: 1, M.QAM16: 2, M.QAM64: 3, M.QAM256: 4, M.QAM1024: 5}
+_KMOD = {M.QPSK: np.sqrt(2.0), M.QAM16: np.sqrt(10.0),
+         M.QAM64: np.sqrt(42.0), M.QAM256: np.sqrt(170.0),
+         M.QAM1024: np.sqrt(682.0)}
+
+
+def demap_llr(eq: torch.Tensor, mod: M) -> torch.Tensor:
+    """Equalized data tones [..., nSD] -> soft bits [..., nSD*nBPSCS]."""
+    if mod == M.BPSK:
+        return eq.real
+    if mod == M.QBPSK:
+        return eq.imag
+    nb_axis = _AXIS_BITS[mod]
+    v = eq * float(_KMOD[mod])
+    levels = []
+    for axis in (v.real, v.imag):
+        lv = axis
+        levels.append(lv)
+        for k in range(1, nb_axis):
+            lv = (1 << (nb_axis - k)) - torch.abs(lv)
+            levels.append(lv)
+    # bit order: I-axis bits then Q-axis bits per subcarrier
+    stacked = torch.stack(levels, dim=-1)                 # [..., nSD, 2*nb]
+    return stacked.reshape(tuple(eq.shape[:-1]) + (-1,))
+
+
+# ---------------------------------------------------------------------------
+# channel estimation / equalization (SISO)
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def ltf_ref_grid(bw: BW, legacy: bool) -> np.ndarray:
+    """LTF reference values on the shifted grid (zeros on null tones)."""
+    nfft = tables.NFFT[bw]
+    lim = {BW.BW20: 26 if legacy else 28, BW.BW40: 58, BW.BW80: 122}[bw]
+    seq = tables.LTF_L[bw] if legacy else (
+        tables.LTF_HT[bw] if bw != BW.BW80 else tables.LTF_VHT[bw])
+    grid = np.zeros(nfft, dtype=np.complex128)
+    grid[nfft // 2 - lim: nfft // 2 + lim + 1] = seq
+    return grid
+
+
+def _chan_from_ref(avg: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    null = ref == 0
+    chan = avg / torch.where(null, 1.0, ref)
+    return torch.where(null, torch.ones_like(chan), chan)
+
+
+def legacy_chan_est(ltf_syms: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """[B, 2, nfft] L-LTF freq symbols -> [B, nfft] channel (1.0 on nulls).
+    ref: `ltf_ref_grid(bw, True)` as complex64."""
+    return _chan_from_ref(torch.mean(ltf_syms, dim=1), ref)
+
+
+def nonlegacy_chan_est_siso(ltf_sym: torch.Tensor,
+                            ref: torch.Tensor) -> torch.Tensor:
+    """[B, nfft] single HT/VHT-LTF freq symbol -> [B, nfft] channel.
+    ref: `ltf_ref_grid(bw, False)` as complex64."""
+    return _chan_from_ref(ltf_sym, ref)
+
+
+def equalize(grids: torch.Tensor, chan: torch.Tensor) -> torch.Tensor:
+    """ZF equalize [B, S, nfft] by per-packet channel [B, nfft]."""
+    return grids / chan[:, None, :]
+
+
+# ---------------------------------------------------------------------------
+# full data-field demod (per static config)
+# ---------------------------------------------------------------------------
+
+
+def _demod_data_tail(eq: torch.Tensor, weight_grid: torch.Tensor, mod: Mod,
+                     pilot_ref: torch.Tensor, pilot_bins: torch.Tensor,
+                     data_bins: torch.Tensor,
+                     perm: torch.Tensor) -> torch.Tensor:
+    """Post-equalization tail: pilot phase track + demap + per-tone CSI
+    weighting + deinterleave.
+
+    eq: [B, n_sym, nfft] equalized grids; weight_grid: [B, nfft] real
+    per-tone noise-inverse weight (|H|^2 for ZF SISO): ZF inflates the noise
+    on faded tones by 1/|H|^2, and scaling each tone's LLRs by its weight
+    restores the max-log metric (uniform, so decisions unchanged, on a flat
+    channel). Tables: pilot_ref `pilot_refs(...)` [n_sym, nSP], pilot_bins /
+    data_bins `tables.PILOT_GRID` / `DATA_GRID`, perm `rx_perm(mod, 0)`.
+    Returns LLRs in coded-bit order [B, n_sym * nCBPSS].
+    """
+    ph = pilot_phase(eq, pilot_ref, pilot_bins)
+    eq = eq / ph[..., None]
+    data = eq[..., data_bins]                             # [B, S, nSD]
+    llr = demap_llr(data, mod.mod)                        # [B, S, nCBPSS]
+    w = weight_grid[..., data_bins]
+    w = w / torch.clamp_min(torch.mean(w, dim=-1, keepdim=True), 1e-12)
+    nb = llr.shape[-1] // data.shape[-1]
+    llr = llr * torch.repeat_interleave(w, nb, dim=-1)[:, None, :]
+    return llr[..., perm].reshape(llr.shape[0], -1)
+
+
+def demod_data_siso(sym_grids: torch.Tensor, chan: torch.Tensor, mod: Mod,
+                    pilot_ref: torch.Tensor, pilot_bins: torch.Tensor,
+                    data_bins: torch.Tensor,
+                    perm: torch.Tensor) -> torch.Tensor:
+    """Equalize + track + demap (CSI-weighted) + deinterleave the DATA field.
+
+    sym_grids: [B, n_sym, nfft] raw FFT grids; chan: [B, nfft]. Returns
+    LLRs in coded-bit order [B, n_sym * nCBPSS].
+    """
+    eq = equalize(sym_grids, chan)
+    return _demod_data_tail(eq, torch.abs(chan) ** 2, mod, pilot_ref,
+                            pilot_bins, data_bins, perm)

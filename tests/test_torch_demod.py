@@ -1,0 +1,113 @@
+"""The port's SISO demod ops (ieee80211_tpu_torch/ops/demod.py) against the
+JAX package. Slicing is exact; everything downstream of the DFT matmuls is
+float32 arithmetic summed in another order, so it is held to a relative
+tolerance: 1e-5 of the largest magnitude for grids and channels, 1e-4 of
+max |LLR| for LLRs (the divisions by the channel and the pilot phasor
+amplify the rounding).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ieee80211_tpu.ops import demod as jdemod
+from ieee80211_tpu.specs import BW, F, M, Mod, tables
+from ieee80211_tpu.specs import interleaver as ilv
+from ieee80211_tpu_torch.ops import demod
+import torch_parity  # noqa: F401  (caps torch's threads)
+
+GRID_RTOL = 1e-5
+LLR_RTOL = 1e-4
+
+
+def _cplx(rng, shape):
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _close(got, ref, rtol):
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=rtol * float(np.max(np.abs(ref))))
+
+
+def _dft(n):
+    return tuple(torch.from_numpy(m) for m in demod._dft_mats(n))
+
+
+@pytest.mark.parametrize("n", [64, 128, 256])
+def test_fft_syms_close(n):
+    rng = np.random.default_rng(n)
+    x = _cplx(rng, (3, 5, n))
+    ref = jdemod.fft_syms(jnp.asarray(x))
+    got = demod.fft_syms(torch.from_numpy(x), *_dft(n))
+    _close(got.numpy(), ref, GRID_RTOL)
+    # the shifted grid is the centred FFT
+    _close(got.numpy(), np.fft.fftshift(np.fft.fft(x, axis=-1), axes=-1),
+           GRID_RTOL)
+
+
+def test_static_symbol_windows_exact():
+    rng = np.random.default_rng(2)
+    z = _cplx(rng, (2, 1200))
+    for off, n_sym, stride in [(0, 2, 64), (144, 1, None), (448, 7, None)]:
+        ref = jdemod.static_symbol_windows(jnp.asarray(z), off, n_sym,
+                                           nfft=64, gi=16, shift=4,
+                                           stride=stride)
+        got = demod.static_symbol_windows(torch.from_numpy(z), off, n_sym,
+                                          nfft=64, gi=16, shift=4,
+                                          stride=stride)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("mod", [M.BPSK, M.QBPSK, M.QPSK, M.QAM16, M.QAM64,
+                                 M.QAM256])
+def test_demap_llr_close(mod):
+    rng = np.random.default_rng(int(mod))
+    eq = _cplx(rng, (2, 3, 52))
+    ref = jdemod.demap_llr(jnp.asarray(eq), mod)
+    got = demod.demap_llr(torch.from_numpy(eq), mod)
+    assert tuple(got.shape) == np.asarray(ref).shape
+    _close(got.numpy(), ref, GRID_RTOL)
+
+
+@pytest.mark.parametrize("bw", [BW.BW20, BW.BW40, BW.BW80])
+def test_channel_estimates_close(bw):
+    n = tables.NFFT[bw]
+    rng = np.random.default_rng(n + 1)
+    ltf = _cplx(rng, (3, 2, n))
+    ref_l = torch.from_numpy(demod.ltf_ref_grid(bw, True).astype(np.complex64))
+    ref_nl = torch.from_numpy(
+        demod.ltf_ref_grid(bw, False).astype(np.complex64))
+    got = demod.legacy_chan_est(torch.from_numpy(ltf), ref_l)
+    _close(got.numpy(), jdemod.legacy_chan_est(jnp.asarray(ltf), bw),
+           GRID_RTOL)
+    got = demod.nonlegacy_chan_est_siso(torch.from_numpy(ltf[:, 0]), ref_nl)
+    _close(got.numpy(),
+           jdemod.nonlegacy_chan_est_siso(jnp.asarray(ltf[:, 0]), bw),
+           GRID_RTOL)
+
+
+@pytest.mark.parametrize("mod", [Mod(F.VHT, 7), Mod(F.L, 7), Mod(F.HT, 0),
+                                 Mod(F.VHT, 9, BW.BW40, 1),
+                                 Mod(F.VHT, 9, BW.BW80, 1)])
+def test_demod_data_siso_close(mod):
+    """CSI-weighted LLRs of random grids through a random channel."""
+    n_sym = 3
+    pidx0 = {F.L: 1, F.HT: 3, F.VHT: 4}[mod.fmt]
+    n = tables.NFFT[mod.bw]
+    rng = np.random.default_rng(n + mod.mcs)
+    grids = _cplx(rng, (2, n_sym, n))
+    chan = _cplx(rng, (2, n)) + 1.5
+    ref = jdemod.demod_data_siso(jnp.asarray(grids), jnp.asarray(chan), mod,
+                                 n_sym, pidx0)
+    key = (mod.bw, mod.fmt == F.L)
+    got = demod.demod_data_siso(
+        torch.from_numpy(grids), torch.from_numpy(chan), mod,
+        torch.from_numpy(demod.pilot_refs(mod, n_sym, pidx0)
+                         .astype(np.float32)),
+        torch.from_numpy(tables.PILOT_GRID[key].astype(np.int64)),
+        torch.from_numpy(tables.DATA_GRID[key].astype(np.int64)),
+        torch.from_numpy(ilv.rx_perm(mod, 0)))
+    assert tuple(got.shape) == (2, n_sym * mod.nCBPS)
+    _close(got.numpy(), ref, LLR_RTOL)

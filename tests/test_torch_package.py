@@ -1,0 +1,117 @@
+"""The port's package as a whole: its constant tables equal the JAX
+package's numpy helpers element for element, importing it never loads jax
+and never builds a kernel, and the receive module's buffers are those
+tables.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ieee80211_tpu.models import RxPipeline as JaxRxPipeline
+from ieee80211_tpu.ops import coding as jcoding
+from ieee80211_tpu.ops import demod as jdemod
+from ieee80211_tpu.ops import sync as jsync
+from ieee80211_tpu.specs import BW, F, Mod, tables
+from ieee80211_tpu_torch.models import RxPipeline, tables_from_numpy
+import torch_parity  # noqa: F401  (caps torch's threads)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = [(Mod(F.VHT, 7), 18), (Mod(F.L, 7), 6),
+           (Mod(F.HT, 5, BW.BW40, 1), 9), (Mod(F.VHT, 9, BW.BW80, 1), 10)]
+
+
+@pytest.mark.parametrize("mod,n_sym", CONFIGS)
+def test_tables_equal_jax_helpers(mod, n_sym):
+    q = tables.NFFT[mod.bw] // 64
+    t = tables_from_numpy(mod, n_sym)
+    w0, w1 = jcoding._radix_tables(4)
+    np.testing.assert_array_equal(t["vit_w0"], w0)
+    np.testing.assert_array_equal(t["vit_w1"], w1)
+    wr, wi = jdemod._dft_mats(64 * q)
+    np.testing.assert_array_equal(t["dft_re"], wr)
+    np.testing.assert_array_equal(t["dft_im"], wi)
+    np.testing.assert_array_equal(t["band"], jsync._band_mat(304 * q, 64 * q))
+    np.testing.assert_array_equal(t["prbs"],
+                                  jcoding._prbs_tiled(n_sym * mod.nDBPS))
+    np.testing.assert_array_equal(t["seed_inv"], jcoding._seed_from_first7())
+    np.testing.assert_array_equal(
+        t["ltf_ref_l"], jdemod.ltf_ref_grid(mod.bw, True).astype(np.complex64))
+    if mod.fmt != F.L:
+        np.testing.assert_array_equal(
+            t["ltf_ref_nl"],
+            jdemod.ltf_ref_grid(mod.bw, False).astype(np.complex64))
+    pidx0 = {F.L: 1, F.HT: 3, F.VHT: 4}[mod.fmt]
+    np.testing.assert_array_equal(
+        t["pilot_ref"],
+        jdemod.pilot_refs(mod, n_sym, pidx0).astype(np.float32))
+    key = (mod.bw, mod.fmt == F.L)
+    np.testing.assert_array_equal(t["data_idx"], tables.DATA_GRID[key])
+    np.testing.assert_array_equal(t["pilot_idx"], tables.PILOT_GRID[key])
+
+
+def test_pipeline_buffers_are_the_tables():
+    mod, n_sym = CONFIGS[0]
+    pipe = RxPipeline(mod, n_sym, 582)
+    bufs = dict(pipe.named_buffers())
+    want = tables_from_numpy(mod, n_sym)
+    assert set(bufs) == {f"step.{k}" for k in want}
+    for k, arr in want.items():
+        b = bufs[f"step.{k}"]
+        assert b.device.type == "cpu"
+        np.testing.assert_array_equal(b.numpy(), arr)
+    assert not any(True for _ in pipe.parameters())
+
+
+@pytest.mark.parametrize("mod,n_sym", CONFIGS)
+def test_window_len_matches_jax(mod, n_sym):
+    assert (RxPipeline(mod, n_sym, 100).window_len()
+            == JaxRxPipeline(mod, n_sym, 100).window_len())
+
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import ieee80211_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ieee80211_tpu_torch.__path__,
+                                               "ieee80211_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+from ieee80211_tpu_torch.ops.cuda import build
+print(json.dumps({"modules": names,
+                  "jax": sorted(m for m in sys.modules
+                                if m == "jax" or m.startswith("jax.")),
+                  "lib_built": build._lib is not None}))
+"""
+
+
+@pytest.fixture(scope="module")
+def import_probe(tmp_path_factory):
+    """Import every module of the port in a fresh interpreter whose CUDA
+    toolkit path leads nowhere."""
+    env = dict(os.environ, CUDA_HOME=str(tmp_path_factory.mktemp("nocuda")))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_import_never_loads_jax(import_probe):
+    assert {"ieee80211_tpu_torch.models.pipeline",
+            "ieee80211_tpu_torch.ops.cuda.viterbi",
+            "ieee80211_tpu_torch.ops.cuda.gather"} <= set(
+                import_probe["modules"])
+    assert import_probe["jax"] == []
+
+
+def test_import_builds_no_kernel(import_probe):
+    assert not import_probe["lib_built"]
+
+
+def test_tf32_off_after_import():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
