@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship receive path once on one NVIDIA GPU.
+"""Drive the PyTorch port's receive paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,7 +7,8 @@ Phases, in order; any failed check raises and the exit code is non-zero:
   1. device check (exits 1 without CUDA) and the card's name / power limit;
   2. build of every CUDA kernel from ieee80211_tpu_torch/csrc/ with nvcc;
   3. the Viterbi kernel against its plain PyTorch version on the card, bit
-     for bit, and against the encoder's input bits;
+     for bit, and against the encoder's input bits, at the shapes of the
+     receive step and of the streaming receiver;
   4. the window-slice kernel against its plain version, element for element;
   5. + 6. `RxPipeline.step` at VHT MCS7 20 MHz (500 B, batch 1024) and VHT
      MCS9 80 MHz (1800 B, batch 256), the inputs of bench.py's two RX rows:
@@ -15,7 +16,20 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      rows must equal the port's CPU run, and launch counters must show that
      each step went through both kernels;
   7. times from CUDA events (median of 10 runs after warm-up): each kernel
-     and its plain version at the main path's shapes, and the whole step.
+     and its plain version at the main path's shapes, and the whole step;
+  8. the Viterbi floor probe (its own entry point, perf/vit_floor.py):
+     kernel == plain at 1024 x 1176 blocks, timed beside the Viterbi kernel
+     on the same input;
+  9. the shared-source slice kernel against its plain version on a 4M-sample
+     capture with 1024 starts, at the SIG and a DATA window length, timed;
+ 10. `SisoReceiver.decode_capture` on bench.py's 20-packet mixed HT/VHT
+     capture: 20/20 exact MPDUs, equal to the port's CPU run;
+ 11. 80 MHz VHT and 40 MHz HT captures: every packet decodes;
+ 12. `SisoReceiver.decode_captures` on bench.py's stream (six ~4M-sample
+     captures of 1000 packets, int8 ingest) with the host and the device
+     trigger: 1000/1000 per capture, the device trigger's positions against
+     the host's, launches of every kernel in every capture, samples/s and
+     packets/s (best of 3) and the host's waits on the device per capture.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports no JAX: the GPU machine has none.
 """
@@ -27,8 +41,6 @@ import time
 import numpy as np
 
 DEVICE = "cuda:0"
-ITERS = 10
-WARMUP = 2
 # the card against the port's CPU run on the same rows: matmuls and
 # reductions sum in another order there
 CFO_TOL = 1e-5    # rad/sample
@@ -37,6 +49,15 @@ HEADLINE = dict(fmt="VHT", mcs=7, bw=20, payload=500, seed=0,
                 cfo_hz=15000.0, batch=1024)
 WIDEBAND = dict(fmt="VHT", mcs=9, bw=80, payload=1800, seed=1,
                 cfo_hz=60000.0, batch=256)
+# the streaming receiver on the card against its CPU run of the same capture
+CFO_HZ_TOL = 1.0   # Hz: the sync's float32 CFO (1e-6 rad/sample) x fs / 2pi
+EVM_TOL = 1e-2     # dB, on a copy with 30 dB SNR. A noiseless packet's EVM
+EVM_FLOOR = 100.0  # SNR measures float32 rounding (~130 dB) and differs by
+                   # dB between devices: there both must only exceed 100 dB
+MAC = dict(addr1="f4:69:d5:80:0f:a0", addr2="00:c0:ca:b1:5b:e1",
+           addr3="f4:69:d5:80:0f:a0")
+N_API = 20                     # bench.py's decode_capture capture
+N_COPY, N_STREAM = 50, 6       # bench.py's stream: 6 x 50 copies of it
 
 
 def check(ok: bool, what: str) -> None:
@@ -77,22 +98,97 @@ def make_batch(fmt: str, mcs: int, bw: int, payload: int, seed: int,
     return pipe, c2r(x), np.zeros(batch, dtype=np.int32), mpdu
 
 
-def cuda_ms(fn) -> float:
-    """Median device time of fn() in ms, from CUDA events."""
-    import torch
-    for _ in range(WARMUP):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(ITERS):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return float(np.median(times))
+def api_capture():
+    """bench.py's 20-packet capture (bench.py:362-381): seed 3, HT MCS5
+    non-aggregated alternating with VHT MCS7 A-MPDU, UDP payloads of
+    100-900 B, CFO uniform in +-50 kHz, gap 800. Returns (capture, mpdus)."""
+    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
+    from ieee80211_tpu.specs import F, Mod
+    from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
+    cfg = MacConfig(subtype=8, seq=2704, **MAC)
+    rng = np.random.default_rng(3)
+    parts, mpdus = [], []
+    for i in range(N_API):
+        pl = bytes(rng.integers(0, 256, int(rng.integers(100, 900)),
+                                dtype=np.uint8))
+        if i % 2:
+            mpdus.append(build_udp_mpdu(pl, cfg))
+            wv = gen_ampdu(aggregate_vht([mpdus[-1]]), Mod(F.VHT, 7)).waveform
+        else:
+            mpdus.append(build_udp_mpdu(pl, MacConfig(**MAC)))
+            wv = gen_mpdu(mpdus[-1], Mod(F.HT, 5)).waveform
+        parts.append(finalize(wv, multiplier=0.2, cfo_hz=float(
+            rng.uniform(-5e4, 5e4)), gap=True, gap_len=800)[0])
+    return np.concatenate(parts), mpdus
+
+
+def stream_captures(cap):
+    """bench.py's stream (bench.py:406-416): six captures, each 50 copies
+    of `cap` with zero gaps U[16, 512) (seed 7) and 64 + 32k leading
+    zeros."""
+    rng = np.random.default_rng(7)
+    parts = []
+    for _ in range(N_COPY):
+        parts.append(np.zeros(int(rng.integers(16, 512)), np.complex64))
+        parts.append(cap)
+    big = np.concatenate(parts)
+    return [np.concatenate([np.zeros(64 + 32 * k, np.complex64), big])
+            for k in range(N_STREAM)]
+
+
+def wideband_capture(bw: int):
+    """Four packets at 40 MHz (HT MCS 1, 3, 5, 7) or 80 MHz (VHT MCS9
+    A-MPDUs) with CFO 7 kHz x q, as tests/test_wideband_rx.py builds them.
+    Returns (capture, mpdus)."""
+    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
+    from ieee80211_tpu.specs import BW, F, Mod
+    from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
+    q = bw // 20
+    parts, mpdus = [], []
+    for k in range(4):
+        mpdus.append(build_udp_mpdu(bytes([k]) * (200 + 150 * k),
+                                    MacConfig(seq=k, **MAC)))
+        if bw == 80:
+            wv = gen_ampdu(aggregate_vht([mpdus[-1]]),
+                           Mod(F.VHT, 9, BW.BW80, 1)).waveform
+        else:
+            wv = gen_mpdu(mpdus[-1], Mod(F.HT, 2 * k + 1, BW.BW40,
+                                         1)).waveform
+        parts.append(finalize(wv, multiplier=0.18, cfo_hz=7000.0 * q,
+                              gap=True, gap_len=256 * q)[0])
+    return np.concatenate(parts), mpdus
+
+
+def add_noise(cap, snr_db: float, seed: int):
+    rng = np.random.default_rng(seed)
+    rms = np.sqrt(np.mean(np.abs(cap[cap != 0]) ** 2))
+    sigma = rms / 10 ** (snr_db / 20) / np.sqrt(2)
+    return (cap + rng.normal(0, sigma, cap.shape)
+            + 1j * rng.normal(0, sigma, cap.shape)).astype(np.complex64)
+
+
+def check_same_packets(got, ref, what: str, evm_tol=None) -> str:
+    """The card's PacketResults against the CPU run's: format, MCS, PSDU,
+    MPDUs, FCS and SIG-B flags exactly; CFO, SNR and EVM SNR within the
+    stated tolerances. Returns a summary of the largest differences."""
+    check(len(got) == len(ref), f"{what}: {len(got)} packets vs {len(ref)} "
+                                f"on the CPU")
+    d_cfo = d_snr = d_evm = 0.0
+    for a, b in zip(got, ref):
+        check((a.fmt, a.mcs, a.psdu, a.mpdus, a.fcs_ok, a.sigb_ok)
+              == (b.fmt, b.mcs, b.psdu, b.mpdus, b.fcs_ok, b.sigb_ok),
+              f"{what}: packet fields == CPU run")
+        d_cfo = max(d_cfo, abs(a.cfo_hz - b.cfo_hz))
+        d_snr = max(d_snr, abs(a.snr_db - b.snr_db))
+        d_evm = max(d_evm, abs(a.evm_snr_db - b.evm_snr_db))
+        if evm_tol is None:
+            check(min(a.evm_snr_db, b.evm_snr_db) > EVM_FLOOR,
+                  f"{what}: noiseless EVM SNR above {EVM_FLOOR} dB")
+    check(d_cfo <= CFO_HZ_TOL and d_snr <= SNR_TOL
+          and (evm_tol is None or d_evm <= evm_tol),
+          f"{what}: cfo/snr/evm vs CPU run")
+    return (f"|dcfo| {d_cfo:.4g} Hz, |dsnr| {d_snr:.4g} dB, |devm| "
+            f"{d_evm:.4g} dB")
 
 
 def main() -> int:
@@ -115,11 +211,12 @@ def main() -> int:
     from ieee80211_tpu_torch.ops.cuda import build
     from ieee80211_tpu_torch.ops.cuda import gather as kg
     from ieee80211_tpu_torch.ops.cuda import viterbi as kv
+    from ieee80211_tpu_torch.perf.timing import cuda_ms
 
     # -- 2. build ------------------------------------------------------------
     t = time.perf_counter()
     build.library()
-    print(f"build: {time.perf_counter() - t:.2f} s (nvcc, both kernels)")
+    print(f"build: {time.perf_counter() - t:.2f} s (nvcc, every kernel)")
     print(build.build_log.strip())
 
     w0, w1 = (torch.from_numpy(a).to(dev)
@@ -132,7 +229,16 @@ def main() -> int:
             ("smoke", 256, 360, CR.CR34, 3),       # tests/test_tpu_smoke.py
             ("lsig", 1024, 24, CR.CR12, 4),        # L-SIG decode
             ("data", 1024, 4680, CR.CR56, 5),      # headline DATA decode
-            ("data80", 256, 15600, CR.CR56, 6)]:   # 80 MHz MCS9 DATA decode
+            ("data80", 256, 15600, CR.CR56, 6),    # 80 MHz MCS9 DATA decode
+            # the streaming receiver's calls: HT-SIG / VHT-SIG-A of a SIG
+            # batch, SIG-B at 20 and 80 MHz in small groups (batches that
+            # are not multiples of the kernel's 4 packets per block), and
+            # DATA buckets (VHT MCS7 x 48 symbols, HT MCS5 x 32)
+            ("sig48", 1056, 48, CR.CR12, 7),
+            ("sigb26", 1, 26, CR.CR12, 8),
+            ("sigb117", 2, 117, CR.CR12, 10),
+            ("bucket_vht7", 256, 12480, CR.CR56, 11),
+            ("bucket_ht5", 2, 6656, CR.CR23, 12)]:
         rng = np.random.default_rng(seed)
         bits = rng.integers(0, 2, size=(batch, n_bits)).astype(np.int32)
         bits[:, -6:] = 0
@@ -186,7 +292,8 @@ def main() -> int:
                                  torch.from_numpy(t0).to(dev))
             torch.cuda.synchronize()
             per_step[bw] = (kv.LAUNCHES - before[0], kg.LAUNCHES - before[1])
-    launches = {"viterbi": kv.LAUNCHES, "slice": kg.LAUNCHES}
+    launches = {"viterbi": kv.LAUNCHES, "slice": kg.LAUNCHES,
+                "slice_shared": 0, "vit_floor": 0}
     for bw, (vit, sli) in per_step.items():
         print(f"launches in the {bw} MHz step: viterbi {vit}, slice {sli}")
         check((vit, sli) == (2, 2), f"{bw} MHz step launched 2 + 2 kernels")
@@ -260,6 +367,164 @@ def main() -> int:
               f"{step_ms:.4f} ms, {b * n / (step_ms * 1e-3):.6g} samples/s "
               f"{tag}")
 
+    # -- 8. the Viterbi floor probe -----------------------------------------
+    from ieee80211_tpu_torch.ops.cuda import vit_floor as kf
+    from ieee80211_tpu_torch.perf import vit_floor
+    probe = vit_floor.measure(dev)
+    launches["vit_floor"] += probe["launches"]
+    b, n_blk, _ = probe["shape"]
+    print(f"floor probe [{b} x {n_blk} blocks x 8]: kernel == plain; probe "
+          f"{probe['ms']:.4f} ms, plain {probe['plain_ms']:.4f} ms, "
+          f"viterbi_r4 on [{b} x {n_blk * kf.K} x 2] "
+          f"{probe['viterbi_ms']:.4f} ms, ACS share "
+          f"{probe['acs_share']:.4f} {tag}")
+    check(probe["launches"] > 0, "the probe run launched the probe kernel")
+
+    # -- 9. shared-source slice kernel vs plain ------------------------------
+    from ieee80211_tpu.specs import F, Mod
+    from ieee80211_tpu_torch.rx import SisoReceiver, receiver
+    rng = np.random.default_rng(12)
+    n_cap = 1 << 22
+    cap_dev = torch.from_numpy(rng.standard_normal((n_cap, 2))
+                               .astype(np.float32)).to(dev)
+    sig_len = (receiver.SIGPARSE_WIN + 320)
+    data_len = receiver.SisoDataDecoder(Mod(F.VHT, 7), 48).zlen()
+    shared_err = 0.0
+    for what, length in (("sig", sig_len), ("data", data_len)):
+        st = np.concatenate([[0, n_cap - length],
+                             rng.integers(0, n_cap - length + 1, 1022)])
+        st = torch.from_numpy(st.astype(np.int32)).to(dev)
+        got = kg.capture_slice_iq_cuda(cap_dev, st, length)
+        ref = receiver.capture_windows_plain(cap_dev, st, length)
+        torch.cuda.synchronize()
+        shared_err = max(shared_err, float((got - ref).abs().max()))
+        check(torch.equal(got, ref), f"shared slice kernel == plain "
+                                     f"({what})")
+        time_pair(f"slice_shared_{what}", f"[{n_cap} -> 1024 x {length}]",
+                  lambda: kg.capture_slice_iq_cuda(cap_dev, st, length),
+                  lambda: receiver.capture_windows_plain(cap_dev, st,
+                                                         length))
+    del cap_dev
+
+    def reset():
+        kv.LAUNCHES = kg.LAUNCHES = kg.SHARED_LAUNCHES = 0
+
+    def read(into=None):
+        got = {"viterbi": kv.LAUNCHES, "slice": kg.LAUNCHES,
+               "slice_shared": kg.SHARED_LAUNCHES}
+        if into is not None:
+            for k, v in got.items():
+                into[k] += v
+        return got
+
+    # -- 10. decode_capture on bench.py's 20-packet capture ------------------
+    from ieee80211_tpu import native
+    api_cap, api_mpdus = api_capture()
+    rx = SisoReceiver(device=dev)
+    reset()
+    res = rx.decode_capture(api_cap)
+    torch.cuda.synchronize()
+    got = read(launches)
+    print(f"decode_capture [{len(api_cap)} samples]: launches {got}")
+    check(all(v > 0 for v in got.values()), "decode_capture launched "
+                                           "every receiver kernel")
+    n_ok = sum(r.fcs_ok and r.mpdus[0] == m for r, m in zip(res, api_mpdus))
+    print(f"decode_capture: {n_ok}/{N_API} packets decode to the exact MPDU "
+          f"with a good FCS")
+    check(len(res) == N_API and n_ok == N_API, "20/20 packets decode")
+    ref = SisoReceiver().decode_capture(api_cap)
+    print("decode_capture vs CPU run: fields equal, "
+          + check_same_packets(res, ref, "decode_capture"))
+    noisy = add_noise(api_cap, 30.0, seed=11)
+    print("decode_capture at 30 dB SNR vs CPU run: fields equal, "
+          + check_same_packets(rx.decode_capture(noisy),
+                               SisoReceiver().decode_capture(noisy),
+                               "noisy decode_capture", evm_tol=EVM_TOL))
+
+    # -- 11. wideband --------------------------------------------------------
+    for bw in (80, 40):
+        wcap, wmpdus = wideband_capture(bw)
+        wrx = SisoReceiver(sample_rate_hz=bw * 1e6, device=dev)
+        reset()
+        res = wrx.decode_capture(wcap)
+        torch.cuda.synchronize()
+        read(launches)
+        n_ok = sum(r.fcs_ok and r.mpdus[0] == m for r, m in zip(res, wmpdus))
+        print(f"{bw} MHz capture: {n_ok}/{len(wmpdus)} packets "
+              f"({', '.join(f'{r.fmt.name}{r.mcs}' for r in res)}) decode "
+              f"to the exact MPDU with a good FCS")
+        check(len(res) == len(wmpdus) and n_ok == len(wmpdus),
+              f"every {bw} MHz packet decodes")
+
+    # -- 12. the stream at full width -------------------------------------
+    import warnings
+    caps = stream_captures(api_cap)
+    total = sum(len(c) for c in caps)
+    print(f"stream: {len(caps)} captures of {len(caps[0])}-"
+          f"{len(caps[-1])} samples, {N_API * N_COPY} packets each; "
+          f"native runtime available: {native.available()}")
+    rx_h = SisoReceiver(device=dev)
+    rx_d = SisoReceiver(trigger="device", device=dev)
+    for c in caps:
+        t_host, _, npad = rx_h._ingest(c)
+        t_dev = rx_d._trigger_starts(rx_d._ingest_device(c)[0])
+        check(len(t_dev) == len(t_host) and np.all(np.abs(t_dev - t_host)
+                                                   <= 4),
+              f"device trigger == host trigger (count {len(t_dev)} vs "
+              f"{len(t_host)}; positions within 4)")
+    print(f"triggers per capture: {len(t_host)} from the host scan, equal "
+          f"in count (positions within 4 samples) to the device scan; "
+          f"ingest {rx_h._mode(npad)}")
+    stream_rate = {}
+    for name, srx in (("host", rx_h), ("device", rx_d)):
+        route = ("int8, native scan_quantize + upload"
+                 if name == "host" and native.available() else
+                 "int8, quantize + upload, trigger scan on the card")
+        reset()
+        waits = srx.n_waits
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                stream = srx.decode_captures(caps)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # the mode's own notice on enabling is a warning too: count only
+        # the ops it flags
+        implicit = sum("synchroniz" in str(w.message)
+                       and "prototype" not in str(w.message) for w in caught)
+        got = read(launches)
+        waits = (srx.n_waits - waits) / len(caps)
+        for res in stream:
+            n_ok = sum(r.fcs_ok for r in res)
+            check(n_ok == N_API * N_COPY == len(res),
+                  f"{name} trigger: {n_ok}/{N_API * N_COPY} packets")
+        print(f"stream, {name} trigger ({route}): {N_API * N_COPY}/"
+              f"{N_API * N_COPY} good FCS in each of {len(caps)} captures; "
+              f"launches {got}; host waits on the device per capture "
+              f"{waits:.4g}, implicit syncs {implicit}")
+        for k, c in enumerate(caps):
+            reset()
+            srx.decode_captures([c])
+            torch.cuda.synchronize()
+            per = read()
+            check(all(v > 0 for v in per.values()),
+                  f"{name} trigger capture {k} launched every kernel {per}")
+        dts = []
+        for _ in range(3):
+            t = time.perf_counter()
+            stream = srx.decode_captures(caps)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t)
+        n_pk = sum(len(r) for r in stream)
+        stream_rate[name] = (total / min(dts), n_pk / min(dts))
+        print(f"time stream, {name} trigger: best of 3 {min(dts):.4f} s "
+              f"(runs {', '.join(f'{d:.4f}' for d in dts)}): "
+              f"{stream_rate[name][0]:.6g} samples/s, "
+              f"{stream_rate[name][1]:.6g} packets/s {tag}")
+
+    # -- 13. the kernels line ------------------------------------------------
     kernels = [
         {"name": "viterbi_r4", "route": "cuda",
          "source": "ieee80211_tpu_torch/csrc/viterbi.cu",
@@ -271,6 +536,18 @@ def main() -> int:
          "replaces": "ieee80211_tpu/ops/pallas/gather.py:78",
          "launches": launches["slice"], "max_abs_err": slice_err,
          "ms": times["slice_z_20"][0], "plain_ms": times["slice_z_20"][1]},
+        {"name": "slice_iq_shared", "route": "cuda",
+         "source": "ieee80211_tpu_torch/csrc/gather.cu",
+         "replaces": "ieee80211_tpu/ops/pallas/gather.py:78",
+         "launches": launches["slice_shared"], "max_abs_err": shared_err,
+         "ms": times["slice_shared_sig"][0],
+         "plain_ms": times["slice_shared_sig"][1]},
+        {"name": "vit_floor", "route": "cuda",
+         "source": "ieee80211_tpu_torch/csrc/vit_floor.cu",
+         "replaces": "perf_vit_floor.py:37",
+         "launches": launches["vit_floor"],
+         "max_abs_err": probe["max_abs_err"],
+         "ms": probe["ms"], "plain_ms": probe["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

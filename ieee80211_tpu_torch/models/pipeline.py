@@ -33,30 +33,19 @@ def _pilot_index(mod: Mod) -> int:
     return {F.L: 1, F.HT: 3}.get(mod.fmt, 4)
 
 
-def tables_from_numpy(mod: Mod, n_sym: int) -> Dict[str, np.ndarray]:
-    """Every constant table of the receive step for (mod, n_sym), as numpy.
-
-    Built by the same numpy helpers as the JAX package (copied into the
-    port's ops modules). Index tables are int64; complex references are
-    complex64, as JAX holds them.
-    """
+def data_tables_from_numpy(mod: Mod, n_sym: int) -> Dict[str, np.ndarray]:
+    """The constant tables of a DATA decode for (mod, n_sym), as numpy:
+    DFT, LTF references, pilots, tone maps, deinterleaver, Viterbi radix
+    tables and scrambler tables (shared with the streaming receiver's
+    decoders, rx/receiver.py)."""
     q = tables.NFFT[mod.bw] // 64
     legacy = mod.fmt == F.L
     w0, w1 = coding._radix_tables(coding.RADIX)
     dft_re, dft_im = demod._dft_mats(64 * q)
-    # legacy-band duplicated SIG indexing (wide bw): the copies are combined
-    d20 = np.asarray(tables.DATA_GRID[(BW.BW20, True)])
-    p20 = np.asarray(tables.PILOT_GRID[(BW.BW20, True)])
     out = {
-        "band": sync.ltf_band_mat(q),
         "dft_re": dft_re,
         "dft_im": dft_im,
         "ltf_ref_l": demod.ltf_ref_grid(mod.bw, True),
-        "sig_data_idx": np.concatenate([d20 + 64 * c for c in range(q)]),
-        "sig_pilot_idx": np.concatenate([p20 + 64 * c for c in range(q)]),
-        "sig_pilot_ref": (np.tile(tables.PILOT_L, q)[None]
-                          * tables.PILOT_POLARITY[0:1, None]),
-        "sig_perm": ilv.sig_rx_perm(),
         "vit_w0": w0,
         "vit_w1": w1,
         "pilot_ref": demod.pilot_refs(mod, n_sym, _pilot_index(mod)),
@@ -68,6 +57,13 @@ def tables_from_numpy(mod: Mod, n_sym: int) -> Dict[str, np.ndarray]:
     }
     if not legacy:
         out["ltf_ref_nl"] = demod.ltf_ref_grid(mod.bw, False)
+    return as_tables(out)
+
+
+def as_tables(out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Cast numpy tables to the dtypes the JAX package holds them in:
+    complex64, float32, int64 for index tables (`*_idx`, `*_perm`), any
+    other integer table as it is."""
     for name, arr in out.items():
         arr = np.asarray(arr)
         if np.iscomplexobj(arr):
@@ -77,6 +73,29 @@ def tables_from_numpy(mod: Mod, n_sym: int) -> Dict[str, np.ndarray]:
         elif name.endswith(("_idx", "_perm")):
             arr = arr.astype(np.int64)
         out[name] = np.ascontiguousarray(arr)
+    return out
+
+
+def tables_from_numpy(mod: Mod, n_sym: int) -> Dict[str, np.ndarray]:
+    """Every constant table of the receive step for (mod, n_sym), as numpy.
+
+    Built by the same numpy helpers as the JAX package (copied into the
+    port's ops modules). Index tables are int64; complex references are
+    complex64, as JAX holds them.
+    """
+    q = tables.NFFT[mod.bw] // 64
+    # legacy-band duplicated SIG indexing (wide bw): the copies are combined
+    d20 = np.asarray(tables.DATA_GRID[(BW.BW20, True)])
+    p20 = np.asarray(tables.PILOT_GRID[(BW.BW20, True)])
+    out = data_tables_from_numpy(mod, n_sym)
+    out.update(as_tables({
+        "band": sync.ltf_band_mat(q),
+        "sig_data_idx": np.concatenate([d20 + 64 * c for c in range(q)]),
+        "sig_pilot_idx": np.concatenate([p20 + 64 * c for c in range(q)]),
+        "sig_pilot_ref": (np.tile(tables.PILOT_L, q)[None]
+                          * tables.PILOT_POLARITY[0:1, None]),
+        "sig_perm": ilv.sig_rx_perm(),
+    }))
     return out
 
 

@@ -169,11 +169,15 @@ def viterbi_decode(llrs: torch.Tensor, cr: CR, n_bits: int,
     radix. Returns decoded bits [B, n_bits] int32.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the radix-4
-    kernel, which raises on anything it does not take.
+    kernel, which raises on anything it does not take. The renorm period
+    follows the radix as in the JAX package: every 64 blocks at radix 4 (the
+    TPU kernel), every block below it (`_viterbi_core`, the JAX decoder on
+    the CPU at radix 3), so radix-3 tables reproduce the JAX CPU decoder.
     """
-    lp = _pairs(llrs, cr, n_bits, w0.shape[-1])
+    k = w0.shape[-1]
+    lp = _pairs(llrs, cr, n_bits, k)
     if lp.device.type == "cpu":
-        bits = viterbi_pairs_plain(lp, w0, w1, RENORM)
+        bits = viterbi_pairs_plain(lp, w0, w1, RENORM if k == RADIX else 1)
     else:
         bits = viterbi_pairs_cuda(lp, w0, w1, RENORM)
     return bits[:, :n_bits]

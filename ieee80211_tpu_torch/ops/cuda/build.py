@@ -32,6 +32,8 @@ _SIGNATURES = {
     # would pass as a 32-bit int and cut the pointer)
     "viterbi_r4_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     "slice_iq_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "slice_iq_shared_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "vit_floor_launch": [_P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -1,13 +1,14 @@
-"""Batched OFDM demodulation ops (PyTorch), SISO half: DFT, channel
-estimate, ZF equalize, pilot tracking, LLR demap, deinterleave.
+"""Batched OFDM demodulation ops (PyTorch), SISO half: DFT, symbol windows,
+channel estimate, ZF equalize, pilot tracking, LLR demap, EVM SNR,
+deinterleave.
 
 Port of ieee80211_tpu/ops/demod.py (`fft_syms` :42,
-`static_symbol_windows` :91, `pilot_refs` :113, `pilot_phase` :119,
-`demap_llr` :138, `ltf_ref_grid` :216, `legacy_chan_est` :227,
-`nonlegacy_chan_est_siso` :236, `equalize` :245, `_demod_data_tail` :393,
-`demod_data_siso` :437). Constant tables come in as tensors on the data's
-device (the receive step holds them as buffers), so a step copies nothing
-from the host.
+`extract_symbol_windows` :58, `static_symbol_windows` :91, `pilot_refs`
+:113, `pilot_phase` :119, `demap_llr` :138, `evm_snr_db` :162,
+`ltf_ref_grid` :216, `legacy_chan_est` :227, `nonlegacy_chan_est_siso`
+:236, `equalize` :245, `_demod_data_tail` :393, `demod_data_siso` :437).
+Constant tables come in as tensors on the data's device (the receive
+modules hold them as buffers), so a call copies nothing from the host.
 """
 from __future__ import annotations
 
@@ -16,8 +17,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ieee80211_tpu.specs import BW, M, Mod, tables
+
+from ..utils.riq import r2c, r_of
+from . import sync
 
 # ---------------------------------------------------------------------------
 # FFT (shifted-grid convention, matching specs/tables.py)
@@ -44,6 +49,30 @@ def fft_syms(x: torch.Tensor, wr: torch.Tensor,
     out_r = torch.matmul(xr, wr) - torch.matmul(xi, wi)
     out_i = torch.matmul(xr, wi) + torch.matmul(xi, wr)
     return torch.complex(out_r, out_i)
+
+
+def extract_symbol_windows(x: torch.Tensor, start: torch.Tensor,
+                           n_sym: int, nfft: int = 64, gi: int = 16,
+                           shift: int = 8,
+                           stride: Optional[int] = None) -> torch.Tensor:
+    """Per-packet OFDM symbol windows of x [B, N] complex64; start [B] is the
+    first symbol's GI. Each symbol's data window is taken `shift` samples
+    into its GI; stride is the symbol spacing (gi + nfft by default, nfft for
+    the legacy LTF's two repetitions). Returns [B, n_sym, nfft].
+
+    One window slice per packet of the span the JAX function slices, through
+    `sync.batch_slice_iq` on the I/Q view (the slice kernel on the card;
+    starts clipped to [0, N - span] as jax.lax.dynamic_slice clips them),
+    then static slicing: the span padded by the last symbol's unused tail
+    reshapes to [n_sym, stride].
+    """
+    sym = stride if stride is not None else (nfft + gi)
+    total = gi - shift + sym * (n_sym - 1) + nfft
+    first = start + (0 if gi - shift >= 0 else gi - shift)
+    base = max(gi - shift, 0)
+    seg = r2c(sync.batch_slice_iq(r_of(x.contiguous()), first, total))
+    seg = F.pad(seg, (0, base + sym * n_sym - total))[:, base:]
+    return seg.reshape(x.shape[0], n_sym, sym)[..., :nfft]
 
 
 def static_symbol_windows(z: torch.Tensor, off: int, n_sym: int,
@@ -114,6 +143,45 @@ def demap_llr(eq: torch.Tensor, mod: M) -> torch.Tensor:
     return stacked.reshape(tuple(eq.shape[:-1]) + (-1,))
 
 
+def evm_snr_db(eq: torch.Tensor, mod: M, sym_mask: Optional[torch.Tensor]
+               = None) -> torch.Tensor:
+    """EVM SNR in dB of equalized data tones eq [..., S, nSD] against their
+    per-axis hard decisions, over the last two axes; sym_mask [..., S]
+    (bool) leaves out the symbols where it is False."""
+    if mod in (M.BPSK, M.QBPSK):
+        kmod = 1.0
+        levels = 1
+    else:
+        kmod = float(_KMOD[mod])
+        levels = 1 << (_AXIS_BITS[mod] - 1)
+    v = eq * kmod
+    if mod == M.QBPSK:
+        re = torch.zeros_like(v.real)
+        im = torch.sign(v.imag)
+    elif mod == M.BPSK:
+        re = torch.sign(v.real)
+        im = torch.zeros_like(re)
+    else:
+        def quant(a):
+            return torch.clamp(2 * torch.round((a - 1) / 2) + 1,
+                               -(2 * levels - 1), 2 * levels - 1)
+        re = quant(v.real)
+        im = quant(v.imag)
+    err = (v.real - re) ** 2 + (v.imag - im) ** 2
+    sig = re ** 2 + im ** 2
+    if sym_mask is None:
+        p_err = torch.mean(err, dim=(-2, -1))
+        p_sig = torch.mean(sig, dim=(-2, -1))
+    else:
+        # where, not a product: symbols past a packet's end can be NaN
+        m = sym_mask[..., None].expand(err.shape)
+        denom = torch.clamp_min(m.to(err.dtype).sum(dim=(-2, -1)), 1.0)
+        p_err = torch.where(m, err, 0.0).sum(dim=(-2, -1)) / denom
+        p_sig = torch.where(m, sig, 0.0).sum(dim=(-2, -1)) / denom
+    return 10.0 * torch.log10(torch.clamp_min(p_sig, 1e-12)
+                              / torch.clamp_min(p_err, 1e-12))
+
+
 # ---------------------------------------------------------------------------
 # channel estimation / equalization (SISO)
 # ---------------------------------------------------------------------------
@@ -162,10 +230,11 @@ def equalize(grids: torch.Tensor, chan: torch.Tensor) -> torch.Tensor:
 
 def _demod_data_tail(eq: torch.Tensor, weight_grid: torch.Tensor, mod: Mod,
                      pilot_ref: torch.Tensor, pilot_bins: torch.Tensor,
-                     data_bins: torch.Tensor,
-                     perm: torch.Tensor) -> torch.Tensor:
+                     data_bins: torch.Tensor, perm: torch.Tensor,
+                     with_snr: bool = False,
+                     n_valid_sym: Optional[torch.Tensor] = None):
     """Post-equalization tail: pilot phase track + demap + per-tone CSI
-    weighting + deinterleave.
+    weighting + deinterleave (+ bucket-padding mask, + EVM SNR).
 
     eq: [B, n_sym, nfft] equalized grids; weight_grid: [B, nfft] real
     per-tone noise-inverse weight (|H|^2 for ZF SISO): ZF inflates the noise
@@ -173,7 +242,11 @@ def _demod_data_tail(eq: torch.Tensor, weight_grid: torch.Tensor, mod: Mod,
     restores the max-log metric (uniform, so decisions unchanged, on a flat
     channel). Tables: pilot_ref `pilot_refs(...)` [n_sym, nSP], pilot_bins /
     data_bins `tables.PILOT_GRID` / `DATA_GRID`, perm `rx_perm(mod, 0)`.
-    Returns LLRs in coded-bit order [B, n_sym * nCBPSS].
+    n_valid_sym: [B] int32 true symbol counts when n_sym is a bucket's
+    capacity: LLRs of later symbols are zeroed (path-neutral in the Viterbi)
+    and left out of the EVM.
+    Returns LLRs in coded-bit order [B, n_sym * nCBPSS], and with with_snr
+    also the EVM SNR [B] in dB.
     """
     ph = pilot_phase(eq, pilot_ref, pilot_bins)
     eq = eq / ph[..., None]
@@ -183,18 +256,31 @@ def _demod_data_tail(eq: torch.Tensor, weight_grid: torch.Tensor, mod: Mod,
     w = w / torch.clamp_min(torch.mean(w, dim=-1, keepdim=True), 1e-12)
     nb = llr.shape[-1] // data.shape[-1]
     llr = llr * torch.repeat_interleave(w, nb, dim=-1)[:, None, :]
-    return llr[..., perm].reshape(llr.shape[0], -1)
+    out = llr[..., perm]                                  # [B, S, nCBPSS]
+    mask = None
+    if n_valid_sym is not None:
+        n_sym = out.shape[1]
+        mask = (torch.arange(n_sym, device=out.device)[None, :]
+                < n_valid_sym[:, None])                   # [B, S]
+        out = torch.where(mask[..., None], out, 0.0)
+    out = out.reshape(out.shape[0], -1)
+    if with_snr:
+        return out, evm_snr_db(data, mod.mod, sym_mask=mask)
+    return out
 
 
 def demod_data_siso(sym_grids: torch.Tensor, chan: torch.Tensor, mod: Mod,
                     pilot_ref: torch.Tensor, pilot_bins: torch.Tensor,
-                    data_bins: torch.Tensor,
-                    perm: torch.Tensor) -> torch.Tensor:
+                    data_bins: torch.Tensor, perm: torch.Tensor,
+                    with_snr: bool = False,
+                    n_valid_sym: Optional[torch.Tensor] = None):
     """Equalize + track + demap (CSI-weighted) + deinterleave the DATA field.
 
     sym_grids: [B, n_sym, nfft] raw FFT grids; chan: [B, nfft]. Returns
-    LLRs in coded-bit order [B, n_sym * nCBPSS].
+    LLRs in coded-bit order [B, n_sym * nCBPSS] (and the EVM SNR [B] with
+    with_snr); n_valid_sym as in `_demod_data_tail`.
     """
     eq = equalize(sym_grids, chan)
     return _demod_data_tail(eq, torch.abs(chan) ** 2, mod, pilot_ref,
-                            pilot_bins, data_bins, perm)
+                            pilot_bins, data_bins, perm, with_snr,
+                            n_valid_sym)

@@ -1,12 +1,15 @@
 """Batched synchronization ops (PyTorch): window slice, STF coarse CFO, LTF
-plateau timing and fine CFO.
+plateau timing and fine CFO, CFO correction, and the STF trigger scan of a
+whole capture (on the host and on the device).
 
-Port of the receive-step half of ieee80211_tpu/ops/sync.py
-(`batch_slice_iq` :89, `sync_front_iq` :109, `_ltf_sync_window` :132,
-`cfo_ramp` :216). `coarse_cfo`, `sync_front` and `ltf_sync` have no callers
-there and are not ported. The window slice runs in the hand-written kernel
-(ops/cuda/gather.py, csrc/gather.cu) on a CUDA tensor and in the plain
-version below on a CPU tensor.
+Port of ieee80211_tpu/ops/sync.py (`_movsum` :37, `stf_autocorr` :60,
+`batch_slice_iq` :89, `sync_front_iq` :109, `_ltf_sync_window` :132,
+`cfo_ramp` :216, `apply_cfo_correction` :231, `_movsum_i32` :243,
+`trigger_scan_capture` :259, `find_triggers_np` :301). `coarse_cfo`,
+`sync_front` and `ltf_sync` have no callers there and are not ported. The
+window slice runs in the hand-written kernel (ops/cuda/gather.py,
+csrc/gather.cu) on a CUDA tensor and in the plain version below on a CPU
+tensor.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..utils.riq import r2c
 from .cuda.gather import batch_slice_iq_cuda
@@ -125,3 +129,127 @@ def sync_front_iq(x2: torch.Tensor, t0: torch.Tensor, band: torch.Tensor,
                     dim=-1)
     cfo_c = torch.atan2(acc.imag, acc.real) / lag
     return _ltf_sync_window(w[:, 80 * q:], t0, cfo_c, band, q)
+
+
+def apply_cfo_correction(x: torch.Tensor, cfo_rad: torch.Tensor
+                         ) -> torch.Tensor:
+    """Multiply [B, N] by exp(j * cfo_rad * n) (compensation ramp)."""
+    return x * cfo_ramp(cfo_rad, x.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# STF trigger scan of a whole capture
+# ---------------------------------------------------------------------------
+
+
+def _movsum(x: torch.Tensor, w: int) -> torch.Tensor:
+    """Moving sum of window w over the trailing axis, length N - w + 1.
+
+    As in the JAX package: a banded 0/1 matmul for N <= 2048 (the band is
+    built on x's device), a cumsum difference above (the whole-capture
+    trigger scan). The cumsum accumulates in float64 on every device: a
+    float32 prefix sum over a 4M-sample capture is too coarse for 16-sample
+    windows, and PyTorch's CUDA cumsum accumulates float32 in float32
+    (its CPU cumsum in double). Complex inputs sum their real and imaginary
+    parts apart.
+    """
+    if x.is_complex():
+        return torch.complex(_movsum(x.real, w), _movsum(x.imag, w))
+    n = x.shape[-1]
+    if n <= 2048:
+        i = torch.arange(n, device=x.device)[:, None]
+        j = torch.arange(n - w + 1, device=x.device)[None, :]
+        band = ((i >= j) & (i < j + w)).to(x.dtype)
+        return torch.matmul(x, band)
+    c = F.pad(torch.cumsum(x, dim=-1, dtype=torch.float64), (1, 0))
+    return (c[..., w:] - c[..., :-w]).to(x.dtype)
+
+
+def stf_autocorr(x: torch.Tensor, lag: int = 16, win: int = 16
+                 ) -> torch.Tensor:
+    """Normalized lag-`lag` auto-correlation magnitude of [..., N] complex:
+    [..., N - lag - win + 1] in [0, 1]."""
+    prod = x[..., :-lag] * torch.conj(x[..., lag:])
+    pwr = torch.abs(x) ** 2
+    num = torch.abs(_movsum(prod, win))
+    p1 = _movsum(pwr[..., :-lag], win)
+    p2 = _movsum(pwr[..., lag:], win)
+    den = torch.sqrt(p1 * p2) + 1e-12
+    return num / den
+
+
+def _movsum_i32(x: torch.Tensor, w: int) -> torch.Tensor:
+    """Exact integer moving sum of a 1-D 0/1 tensor (int32 cumsum
+    difference): length N - w + 1."""
+    c = F.pad(torch.cumsum(x.to(torch.int32), dim=0, dtype=torch.int32),
+              (1, 0))
+    return c[w:] - c[:-w]
+
+
+def trigger_scan_capture(cap: torch.Tensor, k_max: int = 4096, q: int = 1,
+                         thresh: float = 0.5, plateau: int = 20,
+                         min_gap: int = 400):
+    """STF trigger scan of a whole capture on its device, with no host sync.
+
+    cap: [Npad, 2] float32 I/Q (the receiver's dequantized upload; the JAX
+    function takes the int8 upload and its scale and dequantizes the same
+    way). Returns (t0s [k_max] int32 ascending, Npad in empty slots, and
+    n_trig [] int32, which may exceed k_max when the capacity was hit).
+
+    The plateau / rising-edge / windowed min_gap semantics of the JAX
+    function. Its `jnp.nonzero(size=k_max, fill_value=Npad)` becomes a
+    binary search of the running count of kept rises: slot j holds the
+    first position where that count reaches j + 1.
+    """
+    x = r2c(cap)
+    n = x.shape[0]
+    lag = 16 * q
+    plateau, min_gap = plateau * q, min_gap * q
+    ac = stf_autocorr(x[None], lag=lag, win=lag)[0]
+    above = ac > thresh
+    runp = _movsum_i32(above, plateau) == plateau
+    prev = torch.cat([above.new_zeros(1), above[:-1]])[:runp.shape[0]]
+    rise = runp & ~prev
+    prior = _movsum_i32(torch.cat([rise.new_zeros(min_gap), rise]), min_gap)
+    keep = rise & (prior[:rise.shape[0]] == 0)
+    count = torch.cumsum(keep.to(torch.int32), dim=0, dtype=torch.int32)
+    want = torch.arange(1, k_max + 1, dtype=torch.int32, device=cap.device)
+    pos = torch.searchsorted(count, want).to(torch.int32)
+    n_trig = count[-1]
+    return torch.where(want <= n_trig, pos, n), n_trig
+
+
+def find_triggers_np(x: np.ndarray, thresh: float = 0.5, plateau: int = 20,
+                     min_gap: int = 400, q: int = 1) -> np.ndarray:
+    """STF trigger positions of a 1-D complex capture, on the host: where
+    the 16q-lag auto-correlation stays above `thresh` for `plateau`
+    consecutive samples (20 MHz units, scaled by q), at least min_gap
+    apart. Uses the JAX package's jax-free native runtime
+    (ieee80211_tpu.native) when it is available, as the JAX function does;
+    a numpy scan otherwise."""
+    from ieee80211_tpu.native import find_triggers as _native_triggers
+    x = np.asarray(x)
+    plateau, min_gap = plateau * q, min_gap * q
+    nt = _native_triggers(x, thresh=thresh, plateau=plateau,
+                          min_gap=min_gap, lag=16 * q)
+    if nt is not None:
+        return nt
+    lag = 16 * q
+    prod = x[:-lag] * np.conj(x[lag:])
+    pwr = np.abs(x) ** 2
+    kern = np.ones(lag)
+    num = np.abs(np.convolve(prod, kern, mode="valid"))
+    p1 = np.convolve(pwr[:-lag], kern, mode="valid")
+    p2 = np.convolve(pwr[lag:], kern, mode="valid")
+    ac = num / (np.sqrt(p1 * p2) + 1e-12)
+    cnt = 0
+    starts = []
+    last = -min_gap
+    for i, a in enumerate(ac > thresh):
+        cnt = cnt + 1 if a else 0
+        if cnt == plateau:
+            s = i - plateau + 1
+            if s - last >= min_gap:
+                starts.append(s)
+                last = s
+    return np.asarray(starts, dtype=np.int64)

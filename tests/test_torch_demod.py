@@ -3,7 +3,7 @@ JAX package. Slicing is exact; everything downstream of the DFT matmuls is
 float32 arithmetic summed in another order, so it is held to a relative
 tolerance: 1e-5 of the largest magnitude for grids and channels, 1e-4 of
 max |LLR| for LLRs (the divisions by the channel and the pilot phasor
-amplify the rounding).
+amplify the rounding), 1e-4 dB for EVM SNRs.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +18,7 @@ import torch_parity  # noqa: F401  (caps torch's threads)
 
 GRID_RTOL = 1e-5
 LLR_RTOL = 1e-4
+EVM_TOL = 1e-4    # dB
 
 
 def _cplx(rng, shape):
@@ -111,3 +112,90 @@ def test_demod_data_siso_close(mod):
         torch.from_numpy(ilv.rx_perm(mod, 0)))
     assert tuple(got.shape) == (2, n_sym * mod.nCBPS)
     _close(got.numpy(), ref, LLR_RTOL)
+
+
+@pytest.mark.parametrize("q,n_sym,stride,shift", [
+    (1, 2, 64, 8), (1, 1, None, 8), (1, 2, None, 8), (4, 2, 256, 32),
+    (4, 2, None, 32), (1, 3, None, 4)])
+def test_extract_symbol_windows_exact(q, n_sym, stride, shift):
+    """Per-packet windows, starts near the end included (clipped to
+    N - span as jax.lax.dynamic_slice clips them)."""
+    nfft, gi = 64 * q, 16 * q
+    rng = np.random.default_rng(q * 10 + n_sym)
+    n = 1100 * q
+    x = _cplx(rng, (5, n))
+    start = np.array([0, 17 * q, 300 * q, n - 100 * q, n - 1], np.int32)
+    kw = dict(nfft=nfft, gi=gi, shift=shift, stride=stride)
+    ref = jdemod.extract_symbol_windows(jnp.asarray(x), jnp.asarray(start),
+                                        n_sym, **kw)
+    got = demod.extract_symbol_windows(torch.from_numpy(x),
+                                       torch.from_numpy(start), n_sym, **kw)
+    assert tuple(got.shape) == (5, n_sym, nfft)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def _points(rng, mod: M, shape):
+    """Random constellation points of `mod` (the golden TX's table)."""
+    tab = tables.QAM_TAB[mod]
+    return tab[rng.integers(0, len(tab), shape)]
+
+
+@pytest.mark.parametrize("mod", [M.BPSK, M.QBPSK, M.QPSK, M.QAM16, M.QAM64,
+                                 M.QAM256])
+def test_evm_snr_db_close(mod):
+    """Noisy constellation points, over all symbols and with a symbol
+    mask that leaves out NaN symbols (as past a packet's end)."""
+    rng = np.random.default_rng(int(mod) + 50)
+    eq = (_points(rng, mod, (3, 5, 52)) + 0.03 * _cplx(rng, (3, 5, 52))
+          ).astype(np.complex64)
+    ref = jdemod.evm_snr_db(jnp.asarray(eq), mod)
+    got = demod.evm_snr_db(torch.from_numpy(eq), mod)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=EVM_TOL)
+    mask = np.arange(5)[None, :] < np.array([5, 3, 1])[:, None]
+    eq[1, 3:] = np.nan
+    ref = jdemod.evm_snr_db(jnp.asarray(eq), mod, sym_mask=jnp.asarray(mask))
+    got = demod.evm_snr_db(torch.from_numpy(eq), mod,
+                           sym_mask=torch.from_numpy(mask))
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=EVM_TOL)
+
+
+@pytest.mark.parametrize("mod", [Mod(F.VHT, 7), Mod(F.HT, 5), Mod(F.L, 3),
+                                 Mod(F.VHT, 9, BW.BW80, 1)])
+def test_demod_data_siso_n_valid_close(mod):
+    """A bucket of 6 symbols holding packets of 6, 4 and 1 true symbols:
+    LLRs past each packet's end are exactly 0, and the EVM SNR leaves them
+    out."""
+    n_sym = 6
+    pidx0 = {F.L: 1, F.HT: 3, F.VHT: 4}[mod.fmt]
+    n = tables.NFFT[mod.bw]
+    key = (mod.bw, mod.fmt == F.L)
+    rng = np.random.default_rng(n + mod.mcs + 7)
+    chan = _cplx(rng, (3, n)) + 1.5
+    eq = np.zeros((3, n_sym, n), np.complex64)
+    eq[..., tables.DATA_GRID[key]] = _points(rng, mod.mod,
+                                             (3, n_sym, mod.nSD))
+    eq[..., tables.PILOT_GRID[key]] = demod.pilot_refs(mod, n_sym, pidx0)
+    grids = ((eq + 0.02 * _cplx(rng, eq.shape)) * chan[:, None]).astype(
+        np.complex64)
+    nv = np.array([6, 4, 1], np.int32)
+    ref_llr, ref_evm = jdemod.demod_data_siso(
+        jnp.asarray(grids), jnp.asarray(chan), mod, n_sym, pidx0,
+        with_snr=True, n_valid_sym=jnp.asarray(nv))
+    llr, evm = demod.demod_data_siso(
+        torch.from_numpy(grids), torch.from_numpy(chan), mod,
+        torch.from_numpy(demod.pilot_refs(mod, n_sym, pidx0)
+                         .astype(np.float32)),
+        torch.from_numpy(tables.PILOT_GRID[key].astype(np.int64)),
+        torch.from_numpy(tables.DATA_GRID[key].astype(np.int64)),
+        torch.from_numpy(ilv.rx_perm(mod, 0)), with_snr=True,
+        n_valid_sym=torch.from_numpy(nv))
+    _close(llr.numpy(), ref_llr, LLR_RTOL)
+    per = llr.numpy().reshape(3, n_sym, -1)
+    assert not per[1, 4:].any() and not per[2, 1:].any()
+    assert per[2, 0].any()
+    np.testing.assert_allclose(evm.numpy(), np.asarray(ref_evm), rtol=0,
+                               atol=EVM_TOL)
+    assert (evm.numpy() > 25).all()

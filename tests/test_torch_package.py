@@ -103,7 +103,12 @@ def import_probe(tmp_path_factory):
 def test_import_never_loads_jax(import_probe):
     assert {"ieee80211_tpu_torch.models.pipeline",
             "ieee80211_tpu_torch.ops.cuda.viterbi",
-            "ieee80211_tpu_torch.ops.cuda.gather"} <= set(
+            "ieee80211_tpu_torch.ops.cuda.gather",
+            "ieee80211_tpu_torch.ops.cuda.vit_floor",
+            "ieee80211_tpu_torch.perf.vit_floor",
+            "ieee80211_tpu_torch.rx.receiver",
+            "ieee80211_tpu_torch.mu.sounding",
+            "ieee80211_tpu_torch.utils.metrics"} <= set(
                 import_probe["modules"])
     assert import_probe["jax"] == []
 
@@ -115,3 +120,57 @@ def test_import_builds_no_kernel(import_probe):
 def test_tf32_off_after_import():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("q", [1, 2, 4])
+def test_sig_tables_equal_jax_helpers(q):
+    from ieee80211_tpu.rx import receiver as jrx
+    from ieee80211_tpu_torch.rx.receiver import SigTables
+    bw = {1: BW.BW20, 2: BW.BW40, 4: BW.BW80}[q]
+    t = {k: v.numpy() for k, v in SigTables(q).named_buffers()}
+    np.testing.assert_array_equal(t["band"], jsync._band_mat(304 * q, 64 * q))
+    wr, wi = jdemod._dft_mats(64 * q)
+    np.testing.assert_array_equal(t["dft_re"], wr)
+    np.testing.assert_array_equal(t["dft_im"], wi)
+    np.testing.assert_array_equal(
+        t["ltf_ref_l"], jdemod.ltf_ref_grid(bw, True).astype(np.complex64))
+    w0, w1 = jcoding._radix_tables(4)
+    np.testing.assert_array_equal(t["vit_w0"], w0)
+    np.testing.assert_array_equal(t["vit_w1"], w1)
+    mat, const = jrx._crc8_matrix()
+    np.testing.assert_array_equal(t["crc8_mat"], mat)
+    np.testing.assert_array_equal(t["crc8_const"], const)
+    np.testing.assert_array_equal(t["rate_tab"], tables.LEGACY_RATE_BITS)
+    pil = np.tile(tables.PILOT_L, q)
+    np.testing.assert_array_equal(
+        t["nlsig_pilot_ref"],
+        (pil[None] * tables.PILOT_POLARITY[1:3, None]).astype(np.float32))
+    assert t["sig_data_idx"].shape == (48 * q,)
+
+
+@pytest.mark.parametrize("mod,n_sym", CONFIGS)
+def test_decoder_buffers_are_the_tables(mod, n_sym):
+    from ieee80211_tpu.rx import receiver as jrx
+    from ieee80211_tpu.specs import interleaver as ilv
+    from ieee80211_tpu_torch.rx.receiver import (SisoDataDecoder,
+                                                 get_data_decoder)
+    dec = SisoDataDecoder(mod, n_sym)
+    bufs = {k: v.numpy() for k, v in dec.named_buffers()}
+    want = tables_from_numpy(mod, n_sym)
+    assert {"dft_re", "pilot_ref", "data_idx", "rx_perm", "vit_w0",
+            "prbs", "seed_inv"} <= set(bufs)
+    for k, arr in want.items():
+        if k in bufs:
+            np.testing.assert_array_equal(bufs[k], arr, err_msg=k)
+    assert not any(True for _ in dec.parameters())
+    assert dec.zlen() == jrx.SisoDataDecoder(mod, n_sym).zlen()
+    assert (dec.window_capacity()
+            == jrx.SisoDataDecoder(mod, n_sym).window_capacity())
+    if mod.fmt == F.VHT:
+        n_pre = jrx.SIGB_DIMS[mod.bw][0]
+        np.testing.assert_array_equal(bufs["sigb_crc8_mat"],
+                                      jrx._crc8_matrix(n_pre)[0])
+        np.testing.assert_array_equal(
+            bufs["sigb_perm"], ilv.rx_perm(Mod(F.VHT, 0, mod.bw, 1)))
+    assert get_data_decoder(mod, n_sym) is get_data_decoder(mod, n_sym,
+                                                            "cpu")

@@ -40,3 +40,41 @@ def mpdu_decoded(bits_row, psdu_len: int, mpdu: bytes, fmt) -> bool:
         subs = deaggregate_vht(psdu)
         return bool(subs) and subs[0].fcs_ok and subs[0].mpdu == mpdu
     return fcs_ok(psdu) and psdu == mpdu
+
+
+MAC = dict(addr1="f4:69:d5:80:0f:a0", addr2="00:c0:ca:b1:5b:e1",
+           addr3="f4:69:d5:80:0f:a0")
+
+
+def add_noise(cap, snr_db: float, seed: int):
+    """White complex noise at snr_db below the capture's signal RMS."""
+    rng = np.random.default_rng(seed)
+    rms = np.sqrt(np.mean(np.abs(cap[cap != 0]) ** 2))
+    sigma = rms / 10 ** (snr_db / 20) / np.sqrt(2)
+    return (cap + rng.normal(0, sigma, cap.shape)
+            + 1j * rng.normal(0, sigma, cap.shape)).astype(np.complex64)
+
+
+def mixed_capture(seed: int, n: int = 6, snr_db: float = 30.0):
+    """A short bench.py-style capture: HT MCS5 (non-aggregated)
+    alternating with VHT MCS7 A-MPDUs, UDP payloads of 100-300 B, CFO
+    uniform in +-50 kHz, gap 800, white noise at snr_db.
+    Returns (capture complex64, mpdus)."""
+    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
+    from ieee80211_tpu.specs import Mod
+    from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
+    rng = np.random.default_rng(seed)
+    parts, mpdus = [], []
+    for i in range(n):
+        pl = bytes(rng.integers(0, 256, int(rng.integers(100, 300)),
+                                dtype=np.uint8))
+        if i % 2:
+            mpdus.append(build_udp_mpdu(pl, MacConfig(subtype=8, seq=i,
+                                                      **MAC)))
+            wv = gen_ampdu(aggregate_vht([mpdus[-1]]), Mod(F.VHT, 7)).waveform
+        else:
+            mpdus.append(build_udp_mpdu(pl, MacConfig(seq=i, **MAC)))
+            wv = gen_mpdu(mpdus[-1], Mod(F.HT, 5)).waveform
+        parts.append(finalize(wv, multiplier=0.2, cfo_hz=float(
+            rng.uniform(-5e4, 5e4)), gap=True, gap_len=800)[0])
+    return add_noise(np.concatenate(parts), snr_db, seed + 1), mpdus
