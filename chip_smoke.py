@@ -29,7 +29,24 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      captures of 1000 packets, int8 ingest) with the host and the device
      trigger: 1000/1000 per capture, the device trigger's positions against
      the host's, launches of every kernel in every capture, samples/s and
-     packets/s (best of 3) and the host's waits on the device per capture.
+     packets/s (best of 3) and the host's waits on the device per capture;
+ 13. the multi-chain slice kernel against its plain version on a [2, 4M]
+     capture with 1024 starts, at the SIG window and a 2x2 DATA window,
+     timed;
+ 14. `MimoReceiver.decode_capture_full` on the dual-chain universal capture
+     (legacy, SISO HT/VHT by MRC, 2x2 VHT, a VHT NDP), with both chains live
+     and with chain 0 dead: every packet decodes, one NDP with two chain
+     captures, equal to the port's CPU run, launches of every kernel of the
+     path;
+ 15. 2x2 at 40 MHz (HT MCS 8/12/15) and 80 MHz (VHT MCS 0/7/9, two encoder
+     lanes at 7 and 9) through random mixing channels: every packet decodes;
+ 16. the cond-11 hard channel: ML decodes bit for bit where ZF fails, and
+     detector="auto" recovers the packet that "zf" loses;
+ 17. `MimoReceiver.decode_captures` on bench.py's dual-chain stream (six
+     ~4.03M-sample captures per chain of 1440 packets, VHT MCS7 SISO and VHT
+     MCS4 2x2, int8 ingest) with the "auto", "zf" and "ml" detectors:
+     1440/1440 per capture, launches of every kernel in every capture,
+     samples/s and packets/s (best of 3), host waits and implicit syncs.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports no JAX: the GPU machine has none.
 """
@@ -58,6 +75,8 @@ MAC = dict(addr1="f4:69:d5:80:0f:a0", addr2="00:c0:ca:b1:5b:e1",
            addr3="f4:69:d5:80:0f:a0")
 N_API = 20                     # bench.py's decode_capture capture
 N_COPY, N_STREAM = 50, 6       # bench.py's stream: 6 x 50 copies of it
+N_MIMO_SEG, N_MIMO_REP = 12, 120   # bench.py's dual-chain stream: 6 x 120
+                                   # copies of a 12-packet segment
 
 
 def check(ok: bool, what: str) -> None:
@@ -184,11 +203,216 @@ def check_same_packets(got, ref, what: str, evm_tol=None) -> str:
         if evm_tol is None:
             check(min(a.evm_snr_db, b.evm_snr_db) > EVM_FLOOR,
                   f"{what}: noiseless EVM SNR above {EVM_FLOOR} dB")
+        check(len(a.sssnr) == len(b.sssnr), f"{what}: per-stream EVM count")
+        if evm_tol is not None:
+            d_evm = max([d_evm] + [abs(x - y)
+                                   for x, y in zip(a.sssnr, b.sssnr)])
     check(d_cfo <= CFO_HZ_TOL and d_snr <= SNR_TOL
           and (evm_tol is None or d_evm <= evm_tol),
           f"{what}: cfo/snr/evm vs CPU run")
     return (f"|dcfo| {d_cfo:.4g} Hz, |dsnr| {d_snr:.4g} dB, |devm| "
             f"{d_evm:.4g} dB")
+
+
+MIMO_MAC = dict(ftype=2, to_ds=1, from_ds=0, retry=0, protected=0, seq=2704,
+                **MAC)
+
+
+def universal_capture(dead_chain0: bool):
+    """tests/test_dual_chain_universal.py's `_mixed_capture` (seed 11):
+    L MCS3, HT MCS5 and VHT MCS7 on flat per-chain channels, a 2x2 VHT MCS4
+    A-MPDU and a 2-stream VHT NDP through one 2x2 channel, gaps of 900;
+    noise 2e-4, or 1e-4 with chain 0 faded to 1e-3. Returns (capture
+    [2, N], {(fmt, mcs): mpdu})."""
+    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
+    from ieee80211_tpu.specs import BW, F, Mod
+    from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
+    noise = 1e-4 if dead_chain0 else 2e-4
+    rng = np.random.default_rng(11)
+    cfg, cfg_qos = MacConfig(subtype=0, **MIMO_MAC), MacConfig(subtype=8,
+                                                               **MIMO_MAC)
+    mpdu_l = build_udp_mpdu(b"legacy-payload-0123456789", cfg)
+    mpdu_ht = build_udp_mpdu(b"ht-siso-payload-xyz", cfg)
+    mpdu_vht = build_udp_mpdu(b"vht-siso-payload-abcdef", cfg_qos)
+    mpdu_2x2 = build_udp_mpdu(b"two-stream-payload-2x2!!", cfg_qos)
+    w_l = finalize(gen_mpdu(mpdu_l, Mod(F.L, 3)).waveform, multiplier=0.2,
+                   cfo_hz=11000.0, gap=False)[0]
+    w_ht = finalize(gen_mpdu(mpdu_ht, Mod(F.HT, 5)).waveform,
+                    multiplier=0.2, cfo_hz=-8000.0, gap=False)[0]
+    w_vht = finalize(gen_ampdu(aggregate_vht([mpdu_vht]),
+                               Mod(F.VHT, 7)).waveform,
+                     multiplier=0.2, cfo_hz=5000.0, gap=False)[0]
+    w_22 = finalize(gen_ampdu(aggregate_vht([mpdu_2x2]),
+                              Mod(F.VHT, 4, BW.BW20, 2)).waveform,
+                    multiplier=0.2, cfo_hz=-3000.0, gap=False)
+    w_ndp = finalize(gen_ampdu(b"", Mod(F.VHT, 0, BW.BW20, 2)).waveform,
+                     multiplier=0.2, cfo_hz=2000.0, gap=False)
+    h0 = 1e-3 if dead_chain0 else (0.9 - 0.3j)
+    gap = np.zeros((2, 900), np.complex64)
+    parts = []
+    for w in (w_l, w_ht, w_vht):
+        two = np.stack([h0 * w, (0.5 + 0.8j) * w])
+        two += (rng.standard_normal(two.shape)
+                + 1j * rng.standard_normal(two.shape)) * noise
+        parts += [gap, two.astype(np.complex64)]
+    h22 = np.array([[1.1 + 0.2j, 0.3 - 0.5j], [-0.4 + 0.6j, 0.9 + 0.1j]])
+    mixed = (h22 @ w_22).astype(np.complex64)
+    mixed += (rng.standard_normal(mixed.shape)
+              + 1j * rng.standard_normal(mixed.shape)).astype(
+                  np.complex64) * 2e-4
+    parts += [gap, mixed, gap, (h22 @ w_ndp).astype(np.complex64), gap]
+    want = {(F.L, 3): mpdu_l, (F.HT, 5): mpdu_ht, (F.VHT, 7): mpdu_vht,
+            (F.VHT, 4): mpdu_2x2}
+    return np.concatenate(parts, axis=1), want
+
+
+def mix_2x2(wave, seed: int, namp: float):
+    """tests/test_wideband_mimo.py's `_mix`: a random 2x2 channel (+2.5 I)
+    and white noise of amplitude namp."""
+    rng = np.random.default_rng(seed)
+    h = (rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+         + 2.5 * np.eye(2))
+    out = h @ wave
+    out += (rng.standard_normal(out.shape)
+            + 1j * rng.standard_normal(out.shape)) * namp
+    return out.astype(np.complex64)
+
+
+def wideband_mimo_captures():
+    """tests/test_wideband_mimo.py's 2x2 cases at 40 MHz (HT MCS 8/12/15)
+    and 80 MHz (VHT MCS 0/7/9), one capture each: [(bw, fmt, mcs, capture,
+    mpdu)]."""
+    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
+    from ieee80211_tpu.specs import BW, F, Mod
+    from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
+    payload = b"wideband 2x2 MIMO beyond the reference envelope!"
+    out = []
+    for mcs in (8, 12, 15):
+        mpdu = build_udp_mpdu(payload, MacConfig(seq=2704, **MAC))
+        cap = finalize(gen_mpdu(mpdu, Mod(F.HT, mcs, BW.BW40, 2)).waveform,
+                       multiplier=0.2, cfo_hz=18000.0, num=1, gap=True,
+                       gap_len=800)
+        out.append((40, F.HT, mcs, mix_2x2(cap, mcs, 1e-5), mpdu))
+    for mcs in (0, 7, 9):
+        mpdu = build_udp_mpdu(payload, MacConfig(subtype=8, seq=2704, **MAC))
+        cap = finalize(gen_ampdu(aggregate_vht([mpdu]),
+                                 Mod(F.VHT, mcs, BW.BW80, 2)).waveform,
+                       multiplier=0.2, cfo_hz=-28000.0, num=1, gap=True,
+                       gap_len=1600)
+        out.append((80, F.VHT, mcs, mix_2x2(cap, 10 * mcs + 4, 1e-5), mpdu))
+    return out
+
+
+def hard_channel():
+    """tests/test_wideband_mimo.py's hard channel: HT MCS15 40 MHz through
+    seed 15's cond-11 2x2 channel, noise 4e-5 (seed 7777). Returns
+    (capture [2, N], windows [1, 2, W, 2] float32 from the first trigger,
+    mod, n_sym, expected bits, mpdu)."""
+    from ieee80211_tpu.mac import MacConfig, build_udp_mpdu
+    from ieee80211_tpu.specs import BW, F, Mod
+    from ieee80211_tpu.specs.modulation import ppdu_params_nonaggregate
+    from ieee80211_tpu.tx import finalize, gen_mpdu
+    from ieee80211_tpu_torch.ops import sync
+    mpdu = build_udp_mpdu(b"wideband 2x2 MIMO beyond the reference envelope!"
+                          * 4, MacConfig(seq=2704, **MAC))
+    exp = np.concatenate([np.zeros(16, np.uint8), np.unpackbits(
+        np.frombuffer(mpdu, np.uint8), bitorder="little")])
+    mod = Mod(F.HT, 15, BW.BW40, 2)
+    pp = ppdu_params_nonaggregate(mod, len(mpdu))
+    mrng = np.random.default_rng(15)
+    hm = (mrng.standard_normal((2, 2))
+          + 1j * mrng.standard_normal((2, 2))) + 2.5 * np.eye(2)
+    cap = hm @ finalize(gen_mpdu(mpdu, mod).waveform, multiplier=0.2,
+                        cfo_hz=18000.0, num=1, gap=True, gap_len=800)
+    nrng = np.random.default_rng(7777)
+    cap = (cap + (nrng.standard_normal(cap.shape)
+                  + 1j * nrng.standard_normal(cap.shape)) * 4e-5).astype(
+                      np.complex64)
+    t = int(sync.find_triggers_np(cap[0], q=2)[0])
+    need = 500 + (448 + 160 + 160 + pp.n_sym * 80) * 2 + 100
+    w = np.zeros((1, 2, need, 2), np.float32)
+    seg = cap[:, t:t + need]
+    w[0, :, :seg.shape[1], 0] = seg.real
+    w[0, :, :seg.shape[1], 1] = seg.imag
+    return cap, w, mod, pp.n_sym, exp, mpdu
+
+
+def mimo_stream_captures(reps: int = N_MIMO_REP):
+    """bench.py's dual-chain stream (bench.py:460-490): a segment of 12
+    packets with UDP payloads of 100-700 B (seed 15), VHT MCS7 SISO on the
+    flat channel h1 alternating with VHT MCS4 2x2 A-MPDUs through h22, CFO
+    uniform in +-40 kHz, 800 zeros before each; six captures of `reps`
+    copies with 64 + 32k leading zeros. Returns (captures, packets per
+    capture)."""
+    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
+    from ieee80211_tpu.specs import BW, F, Mod
+    from ieee80211_tpu.tx import finalize, gen_ampdu
+    cfg = MacConfig(subtype=8, seq=2704, **MAC)
+    h1 = np.array([0.9 - 0.3j, 0.5 + 0.8j])
+    h22 = np.array([[1.1 + 0.2j, 0.3 - 0.5j], [-0.4 + 0.6j, 0.9 + 0.1j]])
+    rng = np.random.default_rng(15)
+    parts = []
+    for i in range(N_MIMO_SEG):
+        pl = bytes(rng.integers(0, 256, int(rng.integers(100, 700)),
+                                dtype=np.uint8))
+        mp = build_udp_mpdu(pl, cfg)
+        if i % 2:
+            wv = finalize(gen_ampdu(aggregate_vht([mp]),
+                                    Mod(F.VHT, 4, BW.BW20, 2)).waveform,
+                          multiplier=0.2, cfo_hz=float(
+                              rng.uniform(-4e4, 4e4)), gap=False)
+            w2 = h22 @ wv
+        else:
+            wv = finalize(gen_ampdu(aggregate_vht([mp]),
+                                    Mod(F.VHT, 7)).waveform, multiplier=0.2,
+                          cfo_hz=float(rng.uniform(-4e4, 4e4)),
+                          gap=False)[0]
+            w2 = np.stack([h1[0] * wv, h1[1] * wv])
+        parts.append(np.zeros((2, 800), np.complex64))
+        parts.append(w2.astype(np.complex64))
+    big = np.concatenate([np.concatenate(parts, axis=1)] * reps, axis=1)
+    return ([np.concatenate([np.zeros((2, 64 + 32 * k), np.complex64), big],
+                            axis=1) for k in range(N_STREAM)],
+            N_MIMO_SEG * reps)
+
+
+def stream_pass(srx, caps, want: int, what: str):
+    """One pass of `srx.decode_captures(caps)` under the sync debug mode:
+    every capture must return `want` packets with a good FCS. Returns (host
+    waits per capture, implicit syncs)."""
+    import warnings
+
+    import torch
+    waits = srx.n_waits
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            stream = srx.decode_captures(caps)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice on enabling is a warning too: count only the
+    # ops it flags
+    implicit = sum("synchroniz" in str(w.message)
+                   and "prototype" not in str(w.message) for w in caught)
+    for res in stream:
+        n_ok = sum(r.fcs_ok for r in res)
+        check(n_ok == want == len(res), f"{what}: {n_ok}/{want} packets")
+    return (srx.n_waits - waits) / len(caps), implicit
+
+
+def best_of_3(srx, caps):
+    """Host clock around three passes, each ending in a synchronize.
+    Returns (best s, all runs, packets of the last pass)."""
+    import torch
+    dts = []
+    for _ in range(3):
+        t = time.perf_counter()
+        stream = srx.decode_captures(caps)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t)
+    return min(dts), dts, sum(len(r) for r in stream)
 
 
 def main() -> int:
@@ -238,7 +462,14 @@ def main() -> int:
             ("sigb26", 1, 26, CR.CR12, 8),
             ("sigb117", 2, 117, CR.CR12, 10),
             ("bucket_vht7", 256, 12480, CR.CR56, 11),
-            ("bucket_ht5", 2, 6656, CR.CR23, 12)]:
+            ("bucket_ht5", 2, 6656, CR.CR23, 12),
+            # the dual-chain receiver's: the 2x2 VHT MCS4 group of bench.py's
+            # stream (720 packets padded to 768, bucket 16), the two encoder
+            # lanes of 4 VHT MCS9 80 MHz 2x2 packets as 8 rows, HT MCS15
+            # 40 MHz
+            ("mimo_vht4", 768, 4992, CR.CR34, 13),
+            ("lanes_vht9_80", 8, 24960, CR.CR56, 14),
+            ("mimo_ht15_40", 4, 17280, CR.CR56, 15)]:
         rng = np.random.default_rng(seed)
         bits = rng.integers(0, 2, size=(batch, n_bits)).astype(np.int32)
         bits[:, -6:] = 0
@@ -293,7 +524,7 @@ def main() -> int:
             torch.cuda.synchronize()
             per_step[bw] = (kv.LAUNCHES - before[0], kg.LAUNCHES - before[1])
     launches = {"viterbi": kv.LAUNCHES, "slice": kg.LAUNCHES,
-                "slice_shared": 0, "vit_floor": 0}
+                "slice_shared": 0, "slice_multi": 0, "vit_floor": 0}
     for bw, (vit, sli) in per_step.items():
         print(f"launches in the {bw} MHz step: viterbi {vit}, slice {sli}")
         check((vit, sli) == (2, 2), f"{bw} MHz step launched 2 + 2 kernels")
@@ -408,14 +639,21 @@ def main() -> int:
 
     def reset():
         kv.LAUNCHES = kg.LAUNCHES = kg.SHARED_LAUNCHES = 0
+        kg.MULTI_LAUNCHES = 0
 
     def read(into=None):
         got = {"viterbi": kv.LAUNCHES, "slice": kg.LAUNCHES,
-               "slice_shared": kg.SHARED_LAUNCHES}
+               "slice_shared": kg.SHARED_LAUNCHES,
+               "slice_multi": kg.MULTI_LAUNCHES}
         if into is not None:
             for k, v in got.items():
                 into[k] += v
         return got
+
+    # the SISO receiver's windows come from a one-chain capture, the
+    # dual-chain receiver's from the [2, N] capture
+    siso_kernels = ("viterbi", "slice", "slice_shared")
+    mimo_kernels = ("viterbi", "slice", "slice_multi")
 
     # -- 10. decode_capture on bench.py's 20-packet capture ------------------
     from ieee80211_tpu import native
@@ -426,8 +664,8 @@ def main() -> int:
     torch.cuda.synchronize()
     got = read(launches)
     print(f"decode_capture [{len(api_cap)} samples]: launches {got}")
-    check(all(v > 0 for v in got.values()), "decode_capture launched "
-                                           "every receiver kernel")
+    check(all(got[k] > 0 for k in siso_kernels), "decode_capture launched "
+                                                "every receiver kernel")
     n_ok = sum(r.fcs_ok and r.mpdus[0] == m for r, m in zip(res, api_mpdus))
     print(f"decode_capture: {n_ok}/{N_API} packets decode to the exact MPDU "
           f"with a good FCS")
@@ -457,7 +695,6 @@ def main() -> int:
               f"every {bw} MHz packet decodes")
 
     # -- 12. the stream at full width -------------------------------------
-    import warnings
     caps = stream_captures(api_cap)
     total = sum(len(c) for c in caps)
     print(f"stream: {len(caps)} captures of {len(caps[0])}-"
@@ -481,25 +718,9 @@ def main() -> int:
                  if name == "host" and native.available() else
                  "int8, quantize + upload, trigger scan on the card")
         reset()
-        waits = srx.n_waits
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                stream = srx.decode_captures(caps)
-                torch.cuda.synchronize()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        # the mode's own notice on enabling is a warning too: count only
-        # the ops it flags
-        implicit = sum("synchroniz" in str(w.message)
-                       and "prototype" not in str(w.message) for w in caught)
+        waits, implicit = stream_pass(srx, caps, N_API * N_COPY,
+                                      f"{name} trigger")
         got = read(launches)
-        waits = (srx.n_waits - waits) / len(caps)
-        for res in stream:
-            n_ok = sum(r.fcs_ok for r in res)
-            check(n_ok == N_API * N_COPY == len(res),
-                  f"{name} trigger: {n_ok}/{N_API * N_COPY} packets")
         print(f"stream, {name} trigger ({route}): {N_API * N_COPY}/"
               f"{N_API * N_COPY} good FCS in each of {len(caps)} captures; "
               f"launches {got}; host waits on the device per capture "
@@ -509,22 +730,169 @@ def main() -> int:
             srx.decode_captures([c])
             torch.cuda.synchronize()
             per = read()
-            check(all(v > 0 for v in per.values()),
+            check(all(per[n] > 0 for n in siso_kernels),
                   f"{name} trigger capture {k} launched every kernel {per}")
-        dts = []
-        for _ in range(3):
-            t = time.perf_counter()
-            stream = srx.decode_captures(caps)
-            torch.cuda.synchronize()
-            dts.append(time.perf_counter() - t)
-        n_pk = sum(len(r) for r in stream)
-        stream_rate[name] = (total / min(dts), n_pk / min(dts))
-        print(f"time stream, {name} trigger: best of 3 {min(dts):.4f} s "
+        best, dts, n_pk = best_of_3(srx, caps)
+        stream_rate[name] = (total / best, n_pk / best)
+        print(f"time stream, {name} trigger: best of 3 {best:.4f} s "
               f"(runs {', '.join(f'{d:.4f}' for d in dts)}): "
               f"{stream_rate[name][0]:.6g} samples/s, "
               f"{stream_rate[name][1]:.6g} packets/s {tag}")
+    del caps, rx_h, rx_d
 
-    # -- 13. the kernels line ------------------------------------------------
+    # -- 13. multi-chain slice kernel vs plain -------------------------------
+    from ieee80211_tpu.specs import BW
+    from ieee80211_tpu_torch.rx import (MimoDataDecoder, MimoReceiver,
+                                        get_mimo_decoder)
+    rng = np.random.default_rng(13)
+    cap_dev = torch.from_numpy(rng.standard_normal((2, n_cap, 2))
+                               .astype(np.float32)).to(dev)
+    mimo_len = get_mimo_decoder(Mod(F.VHT, 4, BW.BW20, 2), 16).zlen()
+    multi_err = 0.0
+    for what, length in (("sig", sig_len), ("data", mimo_len)):
+        st = np.concatenate([[0, n_cap - length],
+                             rng.integers(0, n_cap - length + 1, 1022)])
+        st = torch.from_numpy(st.astype(np.int32)).to(dev)
+        got = kg.capture_slice_iq_mimo_cuda(cap_dev, st, length)
+        ref = receiver.capture_windows_mimo_plain(cap_dev, st, length)
+        torch.cuda.synchronize()
+        multi_err = max(multi_err, float((got - ref).abs().max()))
+        check(torch.equal(got, ref), f"multi-chain slice kernel == plain "
+                                     f"({what})")
+        time_pair(f"slice_multi_{what}", f"[2 x {n_cap} -> 1024 x 2 x "
+                                         f"{length}]",
+                  lambda: kg.capture_slice_iq_mimo_cuda(cap_dev, st, length),
+                  lambda: receiver.capture_windows_mimo_plain(cap_dev, st,
+                                                              length))
+    del cap_dev
+
+
+    # -- 14. MimoReceiver on the dual-chain universal capture ----------------
+    for dead in (False, True):
+        ucap, uwant = universal_capture(dead)
+        what = "dead chain 0" if dead else "both chains live"
+        mrx = MimoReceiver(device=dev)
+        reset()
+        pkts, ndps = mrx.decode_capture_full(ucap)
+        torch.cuda.synchronize()
+        got = read(launches)
+        print(f"dual-chain decode_capture_full ({what}) [2 x "
+              f"{ucap.shape[1]}]: launches {got}")
+        check(all(got[k] > 0 for k in mimo_kernels),
+              f"dual-chain decode ({what}) launched every kernel of its path")
+        good = {(r.fmt, r.mcs): r for r in pkts if r.fcs_ok}
+        check(set(good) == set(uwant) and len(pkts) == len(uwant)
+              and all(good[k].mpdus[0] == m for k, m in uwant.items()),
+              f"dual-chain ({what}): every packet decodes")
+        check(len(good[(F.VHT, 4)].sssnr) == 2
+              and good[(F.VHT, 4)].sigb_ok is True,
+              f"dual-chain ({what}): 2x2 per-stream EVM and SIG-B")
+        check(len(ndps) == 1 and len(ndps[0]) == 2
+              and all(n.ltf_iq.shape == (128,)
+                      and np.isfinite(n.ltf_iq).all() for n in ndps[0]),
+              f"dual-chain ({what}): one NDP with two chain captures")
+        ref_pkts, ref_ndps = MimoReceiver().decode_capture_full(ucap)
+        d_ndp = max(float(np.abs(a.ltf_iq - b.ltf_iq).max())
+                    for a, b in zip(ndps[0], ref_ndps[0]))
+        check(len(ref_ndps) == 1 and d_ndp <= 1e-4,
+              f"dual-chain ({what}): NDP captures == CPU run")
+        print(f"dual-chain ({what}): {len(good)}/{len(uwant)} packets "
+              f"({', '.join(f'{k[0].name}{k[1]}' for k in good)}) decode to "
+              f"the exact MPDU, 1 NDP x 2 chains; vs CPU run: fields equal, "
+              + check_same_packets(pkts, ref_pkts, f"dual-chain ({what})",
+                                   evm_tol=EVM_TOL)
+              + f", |dndp| {d_ndp:.3g}")
+
+    # -- 15. 2x2 at 40 and 80 MHz --------------------------------------------
+    for bw, fmt, mcs, wcap, mpdu in wideband_mimo_captures():
+        reset()
+        res = MimoReceiver(sample_rate_hz=bw * 1e6,
+                           device=dev).decode_capture(wcap)
+        torch.cuda.synchronize()
+        read(launches)
+        n_es = Mod(fmt, mcs, {40: BW.BW40, 80: BW.BW80}[bw], 2).nES
+        check(len(res) == 1 and (res[0].fmt, res[0].mcs) == (fmt, mcs)
+              and res[0].fcs_ok and res[0].mpdus[0] == mpdu,
+              f"2x2 {fmt.name} MCS{mcs} {bw} MHz decodes")
+        print(f"2x2 {fmt.name} MCS{mcs} {bw} MHz (nES {n_es}): decodes to "
+              f"the exact MPDU with a good FCS, sssnr "
+              f"{tuple(round(x, 2) for x in res[0].sssnr)}")
+
+    # -- 16. the hard channel ------------------------------------------------
+    hcap, hw, hmod, hn_sym, hexp, hmpdu = hard_channel()
+    x = torch.from_numpy(hw).to(dev)
+    sig40 = receiver.SigTables(2).to(dev)
+    ls, cfo_h, _ = sync.sync_front_iq(
+        x[:, 0], torch.zeros(1, dtype=torch.int32, device=dev), sig40.band,
+        q=2)
+    errs = {}
+    for det in ("ml", "zf"):
+        bits, _ = MimoDataDecoder(hmod, hn_sym, det).to(dev).decode(x, ls,
+                                                                   cfo_h)
+        errs[det] = int(np.sum(bits[0, :len(hexp)] != hexp))
+    res = {det: MimoReceiver(sample_rate_hz=40e6, detector=det,
+                             device=dev).decode_capture(hcap)
+           for det in ("zf", "auto")}
+    check(errs["ml"] == 0 and errs["zf"] > 0,
+          f"hard channel: ML exact, ZF wrong ({errs})")
+    check([r.fcs_ok for r in res["zf"]] == [False]
+          and [r.fcs_ok for r in res["auto"]] == [True]
+          and res["auto"][0].mpdus == [hmpdu],
+          "hard channel: auto recovers what zf loses")
+    print(f"hard channel (HT MCS15 40 MHz, cond 11): bit errors ML "
+          f"{errs['ml']}, ZF {errs['zf']}; the receiver's zf fails the FCS, "
+          f"auto decodes it")
+
+    # -- 17. the dual-chain stream at full width -----------------------------
+    mcaps, mwant = mimo_stream_captures()
+    mtotal = sum(c.shape[1] for c in mcaps)
+    print(f"dual-chain stream: {len(mcaps)} captures of 2 x "
+          f"{mcaps[0].shape[1]}-{mcaps[-1].shape[1]} samples, {mwant} "
+          f"packets each")
+    mrxs = {d: MimoReceiver(detector=d, device=dev)
+            for d in ("auto", "zf", "ml")}
+    _, _, mnpad = mrxs["auto"]._ingest(mcaps[0])
+    print(f"ingest {mrxs['auto']._mode(mnpad)} (native scan_quantize per "
+          f"chain: {native.available()})")
+    mimo_rate = {}
+    for det, mrx in mrxs.items():
+        # a warm pass builds the decoders of the stream's groups (moving
+        # their tables to the card synchronizes); then the counted one
+        stream_pass(mrx, mcaps, mwant, f"dual-chain stream ({det}), warm")
+        reset()
+        waits, implicit = stream_pass(mrx, mcaps, mwant,
+                                      f"dual-chain stream ({det})")
+        got = read(launches)
+        check(all(got[k] > 0 for k in mimo_kernels),
+              f"dual-chain stream ({det}) launched every kernel {got}")
+        print(f"dual-chain stream, detector {det}: {mwant}/{mwant} good FCS "
+              f"in each of {len(mcaps)} captures; launches {got}; host waits "
+              f"on the device per capture {waits:.4g}, implicit syncs "
+              f"{implicit}")
+    for k, c in enumerate(mcaps):
+        reset()
+        mrxs["auto"].decode_captures([c])
+        torch.cuda.synchronize()
+        per = read()
+        check(all(per[n] > 0 for n in mimo_kernels),
+              f"dual-chain capture {k} launched every kernel {per}")
+    runs = {d: [] for d in mrxs}
+    for _ in range(3):                     # alternating, as bench.py
+        for det, mrx in mrxs.items():
+            t = time.perf_counter()
+            mrx.decode_captures(mcaps)
+            torch.cuda.synchronize()
+            runs[det].append(time.perf_counter() - t)
+    for det, dts in runs.items():
+        best = min(dts)
+        mimo_rate[det] = (mtotal / best, mwant * len(mcaps) / best)
+        print(f"time dual-chain stream, detector {det}: best of "
+              f"{len(dts)} {best:.4f} s (runs "
+              f"{', '.join(f'{d:.4f}' for d in dts)}): "
+              f"{mimo_rate[det][0]:.6g} samples/s per chain, "
+              f"{mimo_rate[det][1]:.6g} packets/s {tag}")
+
+    # -- 18. the kernels line ------------------------------------------------
     kernels = [
         {"name": "viterbi_r4", "route": "cuda",
          "source": "ieee80211_tpu_torch/csrc/viterbi.cu",
@@ -542,6 +910,12 @@ def main() -> int:
          "launches": launches["slice_shared"], "max_abs_err": shared_err,
          "ms": times["slice_shared_sig"][0],
          "plain_ms": times["slice_shared_sig"][1]},
+        {"name": "slice_iq_mimo", "route": "cuda",
+         "source": "ieee80211_tpu_torch/csrc/gather.cu",
+         "replaces": "ieee80211_tpu/ops/pallas/gather.py:78",
+         "launches": launches["slice_multi"], "max_abs_err": multi_err,
+         "ms": times["slice_multi_sig"][0],
+         "plain_ms": times["slice_multi_sig"][1]},
         {"name": "vit_floor", "route": "cuda",
          "source": "ieee80211_tpu_torch/csrc/vit_floor.cu",
          "replaces": "perf_vit_floor.py:37",

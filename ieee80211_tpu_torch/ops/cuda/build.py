@@ -33,6 +33,7 @@ _SIGNATURES = {
     "viterbi_r4_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     "slice_iq_launch": [_P, _P, _P, _I, _I, _I, _P],
     "slice_iq_shared_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "slice_iq_multi_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vit_floor_launch": [_P, _P, _I, _I, _P],
 }
 

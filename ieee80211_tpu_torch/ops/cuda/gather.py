@@ -1,9 +1,10 @@
-"""Wrappers of the window-slice CUDA kernel (csrc/gather.cu): per-row and
-shared-source.
+"""Wrappers of the window-slice CUDA kernel (csrc/gather.cu): per-row,
+shared-source and multi-chain.
 
 Replaces the TPU kernel ieee80211_tpu/ops/pallas/gather.py
 (`batch_slice_iq_pallas` :95, `_build_call` :77), and the vmapped
-dynamic_slice of ieee80211_tpu/rx/receiver.py::capture_windows (:354).
+dynamic_slices of ieee80211_tpu/rx/receiver.py::capture_windows (:354) and
+`capture_windows_mimo` (:368).
 """
 from __future__ import annotations
 
@@ -13,7 +14,9 @@ from .build import check, library
 
 LAUNCHES = 0          # per-row launches so far: a run can show that it
 SHARED_LAUNCHES = 0   # went through each mode
-_MAX_ROWS = 65535     # gridDim.y limit: one grid row per window
+MULTI_LAUNCHES = 0
+_MAX_ROWS = 65535     # gridDim.y and .z limit: one grid row per window,
+                      # one grid layer per chain
 
 
 def _check(x2: torch.Tensor, start: torch.Tensor, length: int,
@@ -79,4 +82,32 @@ def capture_slice_iq_cuda(cap: torch.Tensor, start: torch.Tensor,
             cap.shape[0], length, torch.cuda.current_stream().cuda_stream)
     check(lib, err, "slice_iq_shared_launch")
     SHARED_LAUNCHES += 1
+    return out
+
+
+def capture_slice_iq_mimo_cuda(cap: torch.Tensor, start: torch.Tensor,
+                               length: int) -> torch.Tensor:
+    """out[g, r] = cap[r, s_g : s_g + length], s_g = clip(start[g], 0,
+    N - length): an [R, N, 2] float32 multi-chain capture, G starts ->
+    [G, R, length, 2] on the card, in one launch."""
+    global MULTI_LAUNCHES
+    if cap.dim() != 3:
+        raise ValueError(f"expected [R, N, 2], got {tuple(cap.shape)}")
+    chains = cap.shape[0]
+    g = start.shape[0] if start.dim() == 1 else -1
+    _check(cap, start, length, g)
+    if not 0 < chains <= _MAX_ROWS:
+        raise ValueError(f"{chains} chains outside (0, {_MAX_ROWS}]")
+    starts = start.to(torch.int32).contiguous()
+    out = torch.empty((g, chains, length, 2), dtype=torch.float32,
+                      device=cap.device)
+    if g == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(cap.device):
+        err = lib.slice_iq_multi_launch(
+            cap.data_ptr(), starts.data_ptr(), out.data_ptr(), g, chains,
+            cap.shape[1], length, torch.cuda.current_stream().cuda_stream)
+    check(lib, err, "slice_iq_multi_launch")
+    MULTI_LAUNCHES += 1
     return out

@@ -1,12 +1,15 @@
-"""Batched OFDM demodulation ops (PyTorch), SISO half: DFT, symbol windows,
-channel estimate, ZF equalize, pilot tracking, LLR demap, EVM SNR,
-deinterleave.
+"""Batched OFDM demodulation ops (PyTorch): DFT, symbol windows, channel
+estimates, ZF equalize, pilot tracking, LLR demap, EVM SNR, deinterleave,
+and the 2x2 MIMO and multi-chain MRC half.
 
 Port of ieee80211_tpu/ops/demod.py (`fft_syms` :42,
 `extract_symbol_windows` :58, `static_symbol_windows` :91, `pilot_refs`
 :113, `pilot_phase` :119, `demap_llr` :138, `evm_snr_db` :162,
 `ltf_ref_grid` :216, `legacy_chan_est` :227, `nonlegacy_chan_est_siso`
-:236, `equalize` :245, `_demod_data_tail` :393, `demod_data_siso` :437).
+:236, `equalize` :245, `mimo_chan_est_2x2` :255, `mimo_equalize_2x2` :274,
+`_ml_candidates` :302, `_slice_to_grid` :315, `ml_detect_llr_2x2` :333,
+`_demod_data_tail` :393, `demod_data_siso` :437, `mrc_combine` :463,
+`demod_data_mrc` :476).
 Constant tables come in as tensors on the data's device (the receive
 modules hold them as buffers), so a call copies nothing from the host.
 """
@@ -224,6 +227,139 @@ def equalize(grids: torch.Tensor, chan: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# 2x2 MIMO channel estimation / equalization
+# ---------------------------------------------------------------------------
+
+
+def mimo_chan_est_2x2(ltf_syms: torch.Tensor, ref: torch.Tensor,
+                      p_ltf: torch.Tensor) -> torch.Tensor:
+    """2x2 channel from the two HT/VHT-LTF symbols on both RX chains.
+
+    ltf_syms: [B, nRx=2, nLtf=2, nfft] frequency-domain LTF symbols; ref:
+    `ltf_ref_grid(bw, False)` as complex64; p_ltf: `tables.P_LTF_4[:2, :2]`
+    as float32. Returns H [B, nfft, nRx, nSTS] with the P-matrix combining
+    H[b, k, r, s] = sum_l P[s, l] Y[b, r, l, k] / (2 ref[k]), and 0 on the
+    bins where ref is 0.
+    """
+    h = torch.einsum("sl,brlk->bkrs", p_ltf.to(ltf_syms.dtype), ltf_syms)
+    null = ref == 0
+    h = h / 2.0 / torch.where(null, 1.0, ref)[None, :, None, None]
+    return torch.where(null[None, :, None, None], torch.zeros_like(h), h)
+
+
+def mimo_equalize_2x2(grids: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """ZF (pseudo-inverse) equalization of 2-stream symbols.
+
+    grids: [B, nRx=2, S, nfft]; h: [B, nfft, nRx, nSTS]. Returns
+    x_hat [B, nSTS=2, S, nfft] = (H^H H)^-1 H^H y per tone, with the Gram
+    determinant floored to 1e-12 where its magnitude is not above it.
+    """
+    hh = torch.conj(h.transpose(-1, -2))          # [B, nfft, nSTS, nRx]
+    gram = hh @ h                                         # [B, nfft, 2, 2]
+    a, b_ = gram[..., 0, 0], gram[..., 0, 1]
+    c, d = gram[..., 1, 0], gram[..., 1, 1]
+    det = a * d - b_ * c
+    det = torch.where(torch.abs(det) > 1e-12, det,
+                      torch.full_like(det, 1e-12))
+    inv = torch.stack([torch.stack([d, -b_], -1),
+                       torch.stack([-c, a], -1)], -2) / det[..., None, None]
+    w = inv @ hh                                          # [B, nfft, 2, nRx]
+    return torch.einsum("bksr,brSk->bsSk", w, grids)
+
+
+# ---------------------------------------------------------------------------
+# 2x2 max-log ML detection
+# ---------------------------------------------------------------------------
+
+ML_CHUNK_BYTES = 1 << 28   # bound of one [B, S, nSD, Nc, nRx] intermediate
+
+
+@lru_cache(maxsize=None)
+def _ml_candidates(mod: M):
+    """(points [Nc] complex64, bit masks [nBPSCS, Nc] bool) for one stream:
+    candidate index == chip value, so bit p of the index is coded bit p of
+    the subcarrier group, demap_llr's layout."""
+    pts = np.asarray(tables.QAM_TAB[mod], dtype=np.complex64)
+    nb = int(np.log2(len(pts)))
+    idx = np.arange(len(pts))
+    masks = np.stack([(idx >> p) & 1 for p in range(nb)]).astype(bool)
+    return pts, masks
+
+
+def _slice_to_grid(z: torch.Tensor, mod: M) -> torch.Tensor:
+    """Exact nearest constellation point per complex z (QAM grids quantize
+    per axis; BPSK / QBPSK collapse to one axis). torch.round rounds half to
+    even, as jnp.round does."""
+    if mod == M.BPSK:
+        return torch.complex(torch.sign(z.real), torch.zeros_like(z.real))
+    if mod == M.QBPSK:
+        return torch.complex(torch.zeros_like(z.imag), torch.sign(z.imag))
+    kmod = float(tables.KMOD[mod])
+    lim = float((1 << _AXIS_BITS[mod]) - 1)
+    v = z * kmod
+
+    def q(a):
+        return torch.clamp(2 * torch.round((a - 1) / 2) + 1, -lim, lim) / kmod
+    # each axis divided on its own: XLA's complex-by-real division rounds
+    # as that, PyTorch's complex division does not
+    return torch.complex(q(v.real), q(v.imag))
+
+
+def ml_detect_llr_2x2(gd: torch.Tensor, h: torch.Tensor, mod: M,
+                      pts: torch.Tensor, masks: torch.Tensor,
+                      chunk_bytes: int = ML_CHUNK_BYTES) -> torch.Tensor:
+    """Exact max-log ML soft detection for 2 spatial streams.
+
+    gd: [B, nRx=2, S, nSD] phase-corrected tone observations (data bins
+    only); h: [B, nSD, nRx, nSTS=2] channel at those bins; (pts, masks):
+    `_ml_candidates(mod)` as tensors on gd's device. Returns LLRs
+    [B, nSTS, S, nCBPSS] in demap_llr's per-stream layout.
+
+    For each stream j and candidate c_j the interfering stream's symbol is
+    sliced exactly (the single-interferer projection onto the QAM grid is
+    the exact conditional minimum), so d2(c_j) is the minimum over the whole
+    product alphabet; LLR_p = min[d2 | bit_p = 0] - min[d2 | bit_p = 1].
+
+    JAX lets XLA fuse the [B, S, nSD, Nc, nRx] candidate tensor; here it is
+    materialized, so the symbols go through in chunks whose candidate tensor
+    stays within `chunk_bytes`. Every value is per (packet, symbol, tone):
+    chunking over symbols changes no minimum.
+    """
+    b, nrx, s, nsd = gd.shape
+    nc = pts.shape[0]
+    per_sym = b * nsd * nc * nrx * gd.element_size()
+    step = max(1, min(s, chunk_bytes // max(per_sym, 1)))
+    y = gd.permute(0, 2, 3, 1)                            # [B, S, nSD, nRx]
+    out = []
+    for j in (0, 1):
+        hj = h[..., j][:, None, :, None, :]               # [B, 1, nSD, 1, nRx]
+        ho = h[..., 1 - j]                                # [B, nSD, nRx]
+        ho_n2 = torch.clamp_min(torch.sum(torch.abs(ho) ** 2, dim=-1),
+                                1e-20)[:, None, :, None]  # [B, 1, nSD, 1]
+        ho_c = torch.conj(ho)[:, None, :, None, :]
+        ho = ho[:, None, :, None, :]
+        cand = hj * pts[None, None, None, :, None]  # [B, 1, nSD, Nc, nRx]
+        lj = []
+        for s0 in range(0, s, step):
+            # residual y - hj cj for every candidate: [B, Sc, nSD, Nc, nRx]
+            r = y[:, s0:s0 + step, :, None, :] - cand
+            # exact conditional minimum over the other stream
+            z = torch.sum(ho_c * r, dim=-1) / ho_n2       # [B, Sc, nSD, Nc]
+            co = _slice_to_grid(z, mod)
+            d2 = torch.sum(torch.abs(r - ho * co[..., None]) ** 2, dim=-1)
+            del r, z, co
+            # min over the candidates whose bit p is 0, minus over those
+            # whose bit p is 1 (masks[p]: bit p == 1)
+            lj.append(torch.stack(
+                [d2.masked_fill(m1, 1e30).amin(dim=-1)
+                 - d2.masked_fill(~m1, 1e30).amin(dim=-1) for m1 in masks],
+                dim=-1))                                  # [B, Sc, nSD, nb]
+        # I bits then Q bits per tone: bit p of the chip == position p
+        out.append(torch.cat(lj, dim=1).reshape(b, s, -1))
+    return torch.stack(out, dim=1)                        # [B, 2, S, nCBPSS]
+
+
+# ---------------------------------------------------------------------------
 # full data-field demod (per static config)
 # ---------------------------------------------------------------------------
 
@@ -283,4 +419,28 @@ def demod_data_siso(sym_grids: torch.Tensor, chan: torch.Tensor, mod: Mod,
     eq = equalize(sym_grids, chan)
     return _demod_data_tail(eq, torch.abs(chan) ** 2, mod, pilot_ref,
                             pilot_bins, data_bins, perm, with_snr,
+                            n_valid_sym)
+
+
+def mrc_combine(grids: torch.Tensor, chan: torch.Tensor) -> torch.Tensor:
+    """Maximal-ratio combining of multi-chain symbol grids: grids
+    [B, nRx, S, nfft], chan [B, nRx, nfft] -> the combined equalized grid
+    [B, S, nfft], eq = sum_r conj(H_r) Y_r / (sum_r |H_r|^2 + 1e-9)."""
+    den = torch.sum(torch.abs(chan) ** 2, dim=1) + 1e-9   # [B, nfft]
+    num = torch.einsum("brsk,brk->bsk", grids, torch.conj(chan))
+    return num / den[:, None, :]
+
+
+def demod_data_mrc(sym_grids: torch.Tensor, chan: torch.Tensor, mod: Mod,
+                   pilot_ref: torch.Tensor, pilot_bins: torch.Tensor,
+                   data_bins: torch.Tensor, perm: torch.Tensor,
+                   with_snr: bool = False,
+                   n_valid_sym: Optional[torch.Tensor] = None):
+    """demod_data_siso for a single-stream packet on several RX chains:
+    sym_grids [B, nRx, n_sym, nfft], chan [B, nRx, nfft]. MRC-combines the
+    chains, then runs the shared tail with the MRC combiner's noise-inverse
+    weight sum_r |H_r|^2 as the per-tone CSI weight."""
+    eq = mrc_combine(sym_grids, chan)
+    return _demod_data_tail(eq, torch.sum(torch.abs(chan) ** 2, dim=1), mod,
+                            pilot_ref, pilot_bins, data_bins, perm, with_snr,
                             n_valid_sym)

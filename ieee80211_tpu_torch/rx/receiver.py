@@ -12,6 +12,10 @@ window is gathered from that one device-resident capture:
     field (FFT, equalize, track, demap, deinterleave, Viterbi, descramble,
     VHT-SIG-B check), fetched back as packed bytes.
 
+The dual-chain receiver (rx/mimo.py) reuses this module's windowing and
+SIG decode through `capture_windows_mimo` and `sig_parse_mimo_capture`, the
+MRC-combined SIG parse of an [nRx, N, 2] capture.
+
 Planning (`_plan_batch`, `_plan_one`) and the byte-level tail (packing, FCS,
 A-MPDU walk) are host numpy, copied from the JAX module because that module
 imports jax; tests/test_torch_receiver_plan.py pins the copies to it. On a
@@ -21,8 +25,7 @@ memory behind a CUDA event, so `decode_captures` overlaps the host's work on
 one capture with the device's on another.
 
 Not ported here: the downlink MU lanes (`_plan_mu_batch`,
-`_dispatch_mu_sigb`, `_plan_mu_data`) and the MIMO SIG parse
-(`sig_parse_mimo`, `capture_windows_mimo`, `sig_parse_mimo_capture`).
+`_dispatch_mu_sigb`, `_plan_mu_data`).
 """
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ from ieee80211_tpu.specs.tables import crc8_bits
 from ..models.pipeline import as_tables, data_tables_from_numpy
 from ..mu.sounding import NdpCapture
 from ..ops import coding, demod, sync
-from ..ops.cuda.gather import capture_slice_iq_cuda
+from ..ops.cuda.gather import (capture_slice_iq_cuda,
+                               capture_slice_iq_mimo_cuda)
 from ..utils.metrics import DecodeStats
 from ..utils.riq import r2c
 
@@ -185,31 +189,88 @@ def sig_parse(x2: torch.Tensor, t0: torch.Tensor, tabs: SigTables) -> dict:
     snr, lsig_ok, l_mcs, l_len, lsig_bits [B, 24], ht_ok, vht_ok, ht_bits
     [B, 48], vht_bits [B, 48], nl1_imag_dom.
     """
-    q = tabs.q
-    x = r2c(x2)
-    ltf_start, cfo, snr = sync.sync_front_iq(x2, t0, tabs.band, q=q)
-    y = sync.apply_cfo_correction(x, cfo)
-    nfft, gi, sh = 64 * q, 16 * q, 8 * q
-
-    def fft(t):
-        return demod.fft_syms(t, tabs.dft_re, tabs.dft_im)
-
-    ltf_t = demod.extract_symbol_windows(y, ltf_start - gi, 2, nfft=nfft,
-                                         gi=gi, shift=sh, stride=nfft)
-    chan = demod.legacy_chan_est(fft(ltf_t), tabs.ltf_ref_l)   # [B, 64q]
+    ltf_start, cfo, snr = sync.sync_front_iq(x2, t0, tabs.band, q=tabs.q)
+    y = sync.apply_cfo_correction(r2c(x2), cfo)
+    chan = _sig_legacy_chan(y, ltf_start, tabs)           # [B, 64q]
 
     def sig_eq(start, n_sym, pref):
-        g = fft(demod.extract_symbol_windows(y, start, n_sym, nfft=nfft,
-                                             gi=gi, shift=sh))
-        eq = demod.equalize(g, chan)
-        ph = demod.pilot_phase(eq, pref, tabs.sig_pilot_idx)
-        tones = (eq / ph[..., None])[..., tabs.sig_data_idx]  # [B, S, 48q]
-        return tones.reshape(tones.shape[:-1] + (q, 48)).sum(dim=-2)
+        eq = demod.equalize(_sig_grids(y, start, n_sym, tabs), chan)
+        return _sig_tones(eq, pref, tabs)
 
-    lsig_eq = sig_eq(ltf_start + OFF_LSIG * q, 1, tabs.lsig_pilot_ref)[:, 0]
+    lsig_eq = sig_eq(ltf_start + OFF_LSIG * tabs.q, 1,
+                     tabs.lsig_pilot_ref)[:, 0]
     # the two post-L-SIG symbols carry HT-SIG (QBPSK) or VHT-SIG-A (BPSK +
     # QBPSK)
-    nl_eq = sig_eq(ltf_start + OFF_NLSIG * q, 2, tabs.nlsig_pilot_ref)
+    nl_eq = sig_eq(ltf_start + OFF_NLSIG * tabs.q, 2, tabs.nlsig_pilot_ref)
+    out = _sig_fields_from_eq(lsig_eq, nl_eq, tabs)
+    out.update(ltf_start=ltf_start, cfo=cfo, snr=snr)
+    return out
+
+
+# The SIG symbols are taken 8q samples into their GI, not the DATA decoders'
+# 4q, as in the JAX package.
+
+
+def _sig_grids(y: torch.Tensor, start: torch.Tensor, n_sym: int,
+               tabs: SigTables) -> torch.Tensor:
+    """FFT grids [B, n_sym, 64q] of n_sym symbols whose first GI is at
+    `start` in the CFO-corrected windows y [B, N]."""
+    q = tabs.q
+    t = demod.extract_symbol_windows(y, start, n_sym, nfft=64 * q,
+                                     gi=16 * q, shift=8 * q)
+    return demod.fft_syms(t, tabs.dft_re, tabs.dft_im)
+
+
+def _sig_legacy_chan(y: torch.Tensor, ltf_start: torch.Tensor,
+                     tabs: SigTables) -> torch.Tensor:
+    """Legacy channel [B, 64q] from the two L-LTF repetitions."""
+    q = tabs.q
+    t = demod.extract_symbol_windows(y, ltf_start - 16 * q, 2, nfft=64 * q,
+                                     gi=16 * q, shift=8 * q, stride=64 * q)
+    return demod.legacy_chan_est(demod.fft_syms(t, tabs.dft_re, tabs.dft_im),
+                                 tabs.ltf_ref_l)
+
+
+def _sig_tones(eq: torch.Tensor, pref: torch.Tensor,
+               tabs: SigTables) -> torch.Tensor:
+    """Pilot-phase-corrected SIG data tones [B, S, 48] of equalized grids
+    [B, S, 64q]: the 20 MHz subbands' copies are summed."""
+    ph = demod.pilot_phase(eq, pref, tabs.sig_pilot_idx)
+    tones = (eq / ph[..., None])[..., tabs.sig_data_idx]  # [B, S, 48q]
+    return tones.reshape(tones.shape[:-1] + (tabs.q, 48)).sum(dim=-2)
+
+
+def sig_parse_mimo(x2: torch.Tensor, t0: torch.Tensor,
+                   tabs: SigTables) -> dict:
+    """Multi-chain SIG parse with maximal-ratio combining across RX chains.
+
+    x2: [B, nRx, N, 2] float32 I/Q windows; t0: [B] int32. Every chain is
+    synced on its own; the chain with the best LTF correlation (the first
+    of equals, as jnp.argmax) gives the timing and the CFO, common to the
+    chains, which share one LO. Each chain gets its own legacy channel
+    estimate and the SIG tones are MRC-combined before demapping. Returns
+    the metadata dict of `sig_parse`, with the best chain's SNR.
+    """
+    b, nrx = x2.shape[0], x2.shape[1]
+    xf = x2.reshape((b * nrx,) + tuple(x2.shape[2:]))
+    ls_c, cfo_c, snr_c = (v.reshape(b, nrx) for v in sync.sync_front_iq(
+        xf, t0.repeat_interleave(nrx), tabs.band, q=tabs.q))
+    best = torch.argmax(snr_c, dim=1)[:, None]
+    ltf_start = torch.gather(ls_c, 1, best)[:, 0]
+    cfo = torch.gather(cfo_c, 1, best)[:, 0]
+    snr = snr_c.amax(dim=1)
+    y = sync.apply_cfo_correction(r2c(xf), cfo.repeat_interleave(nrx))
+    ls2 = ltf_start.repeat_interleave(nrx)
+    chan = _sig_legacy_chan(y, ls2, tabs).reshape(b, nrx, -1)
+
+    def sig_eq(off, n_sym, pref):
+        g = _sig_grids(y, ls2 + off, n_sym, tabs)
+        eq = demod.mrc_combine(g.reshape((b, nrx) + tuple(g.shape[1:])),
+                               chan)
+        return _sig_tones(eq, pref, tabs)
+
+    lsig_eq = sig_eq(OFF_LSIG * tabs.q, 1, tabs.lsig_pilot_ref)[:, 0]
+    nl_eq = sig_eq(OFF_NLSIG * tabs.q, 2, tabs.nlsig_pilot_ref)
     out = _sig_fields_from_eq(lsig_eq, nl_eq, tabs)
     out.update(ltf_start=ltf_start, cfo=cfo, snr=snr)
     return out
@@ -335,6 +396,27 @@ def capture_windows(cap: torch.Tensor, start: torch.Tensor,
     return capture_slice_iq_cuda(cap, start, length)
 
 
+def capture_windows_mimo_plain(cap: torch.Tensor, start: torch.Tensor,
+                               length: int) -> torch.Tensor:
+    """Plain multi-chain gather: cap [nRx, N, 2] (any dtype), start [G] ->
+    [G, nRx, length, 2], out[g, r] = cap[r, clip(start[g], 0, N - length)
+    + arange(length)]."""
+    s = start.long().clamp(0, cap.shape[1] - length)
+    idx = s[:, None] + torch.arange(length, device=cap.device)
+    return cap[:, idx].transpose(0, 1)
+
+
+def capture_windows_mimo(cap: torch.Tensor, start: torch.Tensor,
+                         length: int) -> torch.Tensor:
+    """capture_windows for an [nRx, N, 2] multi-chain capture: the same
+    window of every chain, [G, nRx, length, 2]. A CPU tensor takes the
+    plain version; any other launches the multi-chain slice kernel, which
+    takes float32."""
+    if cap.device.type == "cpu":
+        return capture_windows_mimo_plain(cap, start, length)
+    return capture_slice_iq_mimo_cuda(cap, start, length)
+
+
 def pack_bits_le(bits: torch.Tensor) -> torch.Tensor:
     """[B, n] 0/1 -> [B, ceil(n/8)] uint8, LSB-first (np.packbits
     bitorder='little'): the decoded-bits fetch shrinks 8x."""
@@ -417,6 +499,16 @@ def sig_parse_capture(cap: torch.Tensor, t_clamp: torch.Tensor,
                                 tabs))
 
 
+def sig_parse_mimo_capture(cap: torch.Tensor, t_clamp: torch.Tensor,
+                           t0: torch.Tensor, wlen: int,
+                           tabs: SigTables) -> torch.Tensor:
+    """sig_parse_mimo over windows of an [nRx, Npad, 2] float32 capture (the
+    dual-chain receiver's dequantized upload); the packed [B, 9] int32 meta
+    array of `sig_parse_capture`."""
+    return _pack_meta(sig_parse_mimo(capture_windows_mimo(cap, t_clamp, wlen),
+                                     t0, tabs))
+
+
 # ---------------------------------------------------------------------------
 # DATA-field decoding (config-specialized)
 # ---------------------------------------------------------------------------
@@ -471,8 +563,12 @@ class SisoDataDecoder(nn.Module):
         self.psdu_len = psdu_len
         self.n_bits = n_sym * mod.nDBPS
         self.q = tables.NFFT[mod.bw] // 64
-        for name, arr in decoder_tables_from_numpy(mod, n_sym).items():
+        for name, arr in self._tables(mod, n_sym).items():
             self.register_buffer(name, torch.from_numpy(arr))
+
+    @staticmethod
+    def _tables(mod: Mod, n_sym: int):
+        return decoder_tables_from_numpy(mod, n_sym)
 
     def data_offset(self) -> int:
         """DATA field GI offset relative to the LTF data start (in samples
@@ -746,19 +842,22 @@ class SisoReceiver:
             return "int8" if npad > (1 << 20) else "f32"
         return self.ingest
 
-    def _host_buffer(self, n_r: int, dtype: torch.dtype) -> torch.Tensor:
-        """Zeroed [n_r, 2] host buffer, pinned when the receiver is on the
-        card so that its upload does not block."""
-        return torch.zeros((n_r, 2), dtype=dtype,
-                           pin_memory=self._on_card())
+    def _host_buffer(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        """Zeroed host buffer, pinned when the receiver is on the card so
+        that its upload does not block."""
+        return torch.zeros(shape, dtype=dtype, pin_memory=self._on_card())
 
-    def _cap_to_device(self, buf: torch.Tensor, scale: Optional[float],
-                       npad: int) -> torch.Tensor:
-        """Upload the tight host buffer, dequantize it (int8) and zero-pad
-        it on the device: float32 [npad, 2]. An int8 value times the
-        float32 scale is the JAX package's per-window dequantization."""
+    def _cap_to_device(self, buf: torch.Tensor, scale, npad: int
+                       ) -> torch.Tensor:
+        """Upload the tight host buffer [..., n_r, 2], dequantize it (int8)
+        and zero-pad it on the device: float32 [..., npad, 2]. scale is a
+        float, or a float32 array that broadcasts over the buffer (one
+        scale per chain). An int8 value times the float32 scale is the JAX
+        package's per-window dequantization."""
         dev = buf.to(self.device, non_blocking=True)
-        if scale is not None:
+        if isinstance(scale, np.ndarray):
+            dev = dev.to(torch.float32) * self._to_device(scale)
+        elif scale is not None:
             dev = dev.to(torch.float32) * float(np.float32(scale))
         return _pad_capture(dev, npad)
 
@@ -777,7 +876,7 @@ class SisoReceiver:
         npad = next_pow2(n + 4096, lo=1 << 15)
         n_r = min(_round_64k(n), npad)
         if self._mode(npad) == "int8":
-            buf = self._host_buffer(n_r, torch.int8)
+            buf = self._host_buffer((n_r, 2), torch.int8)
             q8 = buf.numpy()
             s = native.quantize_int8(capture, q8[:n])
             if s is None:                        # no native toolchain
@@ -789,7 +888,7 @@ class SisoReceiver:
                 q8[:n, 1] = np.clip(np.round(capture.imag * sc), -127, 127)
                 s = 1.0 / sc
             return self._cap_to_device(buf, s, npad), npad
-        buf = self._host_buffer(n_r, torch.float32)
+        buf = self._host_buffer((n_r, 2), torch.float32)
         buf.numpy()[:n] = capture.view(np.float32).reshape(-1, 2)
         return self._cap_to_device(buf, None, npad), npad
 
@@ -804,7 +903,8 @@ class SisoReceiver:
         n = len(capture)
         npad = next_pow2(n + 4096, lo=1 << 15)
         if self._mode(npad) == "int8" and native.available():
-            buf = self._host_buffer(min(_round_64k(n), npad), torch.int8)
+            buf = self._host_buffer((min(_round_64k(n), npad), 2),
+                                    torch.int8)
             t0s, s = native.scan_quantize(
                 capture, buf.numpy()[:n], thresh=0.5, plateau=20 * self.q,
                 min_gap=MIN_TRIGGER_GAP * self.q, lag=16 * self.q)
@@ -1053,8 +1153,11 @@ class SisoReceiver:
         t_clamp[:len(t0s)] = tc
         delta[:len(t0s)] = t0s - tc
         idx = self._to_device(np.stack([t_clamp, delta]))
-        packed = sig_parse_capture(cap_dev, idx[0], idx[1], wlen, self.sig)
+        packed = self._sig_parse(cap_dev, idx[0], idx[1], wlen)
         return _Fetch(packed), t_clamp
+
+    def _sig_parse(self, cap_dev, t_clamp, t0, wlen):
+        return sig_parse_capture(cap_dev, t_clamp, t0, wlen, self.sig)
 
     def _finish_sigs(self, packed: _Fetch, t_clamp) -> dict:
         meta = _unpack_meta(self._wait(packed))
@@ -1068,16 +1171,18 @@ class SisoReceiver:
     def _decoder_for(self, mod: Mod, n_sym_bucket: int):
         return get_data_decoder(mod, n_sym_bucket, self.device)
 
-    def _dispatch_plans(self, cap_dev, npad, plans):
+    def _dispatch_plans(self, cap_dev, npad, plans, decoder_for=None):
         """Group plans by (Mod, bucket) and submit one decode per group.
-        Returns futs for _finish_plans: each group's packed bytes, EVM and
-        SIG-B flag travel back in ONE fetch of its real rows."""
+        Returns futs for _finish_plans: each group's packed bytes, EVM SNRs
+        (one per stream) and SIG-B flag travel back in ONE fetch of its real
+        rows. decoder_for overrides `_decoder_for` (the dual-chain
+        receiver's exact-ML retry pass re-dispatches through it)."""
         groups: dict = {}
         for i, p in plans:
             groups.setdefault((p.mod, _bucket(p.n_sym)), []).append((i, p))
         futs = []
         for (mod, nb), items in groups.items():
-            dec = self._decoder_for(mod, nb)
+            dec = (decoder_for or self._decoder_for)(mod, nb)
             w = dec.window_capacity()
             g = len(items)
             gp = group_pad(g)
@@ -1100,27 +1205,28 @@ class SisoReceiver:
             # 256-byte buckets
             nb_need = 2 + max(p.psdu_len for _, p in items)
             nb_pad = min(-(-nb_need // 256) * 256, int(packed.shape[1]))
+            evm = evm[:g].reshape(g, -1)     # [g, 1], or [g, 2] for 2x2
             out = torch.cat([packed[:g, :nb_pad],
-                             evm[:g].contiguous().view(torch.uint8)
-                             .reshape(g, 4),
+                             evm.contiguous().view(torch.uint8),
                              sigb[:g, None].to(torch.uint8)], dim=1)
-            futs.append((items, nb_pad, _Fetch(out)))
+            futs.append((items, nb_pad, evm.shape[1], _Fetch(out)))
         return futs
 
     def _finish_plans(self, futs):
         collected = []
-        for items, nb_pad, fetch in futs:
+        for items, nb_pad, n_ev, fetch in futs:
             arr = self._wait(fetch)
             pb = arr[:, :nb_pad]
             # one bulk tolist() per group (per-packet numpy scalars are slow)
-            ev = arr[:, nb_pad:nb_pad + 4].copy().view(np.float32)[:, 0] \
-                .tolist()
-            sb = arr[:, nb_pad + 4].astype(bool).tolist()
+            ev = arr[:, nb_pad:nb_pad + 4 * n_ev].copy().view(
+                np.float32).tolist()
+            sb = arr[:, nb_pad + 4 * n_ev].astype(bool).tolist()
             for j, (i, p) in enumerate(items):
                 psdu = pb[j, 2:2 + p.psdu_len].tobytes()
+                # the joint EVM SNR is the mean of the per-stream ones
                 r = assemble_psdu(
                     p.mod.fmt, p.mod, psdu, p.ampdu, p.cfo_hz, p.snr,
-                    ev[j], sssnr=(ev[j],),
+                    sum(ev[j]) / n_ev, sssnr=tuple(ev[j]),
                     sigb_ok=(sb[j] if p.mod.fmt == F.VHT else None))
                 r.mu = p.mu
                 collected.append((i, r))

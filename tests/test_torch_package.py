@@ -107,6 +107,7 @@ def test_import_never_loads_jax(import_probe):
             "ieee80211_tpu_torch.ops.cuda.vit_floor",
             "ieee80211_tpu_torch.perf.vit_floor",
             "ieee80211_tpu_torch.rx.receiver",
+            "ieee80211_tpu_torch.rx.mimo",
             "ieee80211_tpu_torch.mu.sounding",
             "ieee80211_tpu_torch.utils.metrics"} <= set(
                 import_probe["modules"])

@@ -78,3 +78,34 @@ def mixed_capture(seed: int, n: int = 6, snr_db: float = 30.0):
         parts.append(finalize(wv, multiplier=0.2, cfo_hz=float(
             rng.uniform(-5e4, 5e4)), gap=True, gap_len=800)[0])
     return add_noise(np.concatenate(parts), snr_db, seed + 1), mpdus
+
+
+def snr_tol_db(snr_db):
+    """Tolerance of the sync's SNR metric 10 log10(c / (1 - c)) between two
+    float32 computations of the LTF correlation peak c: 64 float32 ulps of
+    c, which moves the metric by 10 log10(e) * 64 * 2^-24 * (s + 2) dB with
+    s = 10^(SNR / 10) (0.008 dB at 27 dB, 0.05 dB at 35 dB: near c = 1 the
+    metric amplifies the rounding of c), and at least 5e-3 dB."""
+    s = 10.0 ** (np.asarray(snr_db, np.float64) / 10.0)
+    return np.maximum(5e-3, 10.0 * np.log10(np.e) * 64 * 2.0 ** -24
+                      * (s + 2.0))
+
+
+CFO_HZ_TOL = 1.0   # Hz: 1e-6 rad/sample x fs / 2pi is 13 Hz at 80 MHz
+EVM_TOL = 1e-3     # dB
+
+
+def assert_same_packets_all(got, ref):
+    """Two receivers' PacketResult lists, packet for packet: format, MCS,
+    PSDU, MPDUs, FCS, SIG-B flag, MU flag and the number of per-stream EVM
+    SNRs exactly; CFO within CFO_HZ_TOL, SNR within snr_tol_db, the EVM SNR
+    and each per-stream one within EVM_TOL."""
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert (g.fmt, g.mcs, g.psdu, g.mpdus, g.fcs_ok, g.sigb_ok, g.mu,
+                len(g.sssnr)) == (r.fmt, r.mcs, r.psdu, r.mpdus, r.fcs_ok,
+                                  r.sigb_ok, r.mu, len(r.sssnr))
+        assert abs(g.cfo_hz - r.cfo_hz) <= CFO_HZ_TOL
+        assert abs(g.snr_db - r.snr_db) <= snr_tol_db(r.snr_db)
+        assert abs(g.evm_snr_db - r.evm_snr_db) <= EVM_TOL
+        np.testing.assert_allclose(g.sssnr, r.sssnr, rtol=0, atol=EVM_TOL)
