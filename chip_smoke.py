@@ -15,13 +15,19 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      every packet must decode to the exact MPDU with a good FCS, the first
      rows must equal the port's CPU run, and launch counters must show that
      each step went through both kernels;
-  7. times from CUDA events (median of 10 runs after warm-up): each kernel
-     and its plain version at the main path's shapes, and the whole step;
+  7. times at the main path's shapes: each kernel per wrapper call (CUDA
+     events, median of 10 after warm-up) and on the device alone (10
+     launches queued back to back behind a spin of the card), its plain
+     version, the one torch.gather call that cuts the same windows (the
+     Viterbi has no such PyTorch call), the least time of its work
+     (bound_ms, from its bytes and operations), and the whole step with
+     its kernels' device time (torch.profiler);
   8. the Viterbi floor probe (its own entry point, perf/vit_floor.py):
      kernel == plain at 1024 x 1176 blocks, timed beside the Viterbi kernel
      on the same input;
-  9. the shared-source slice kernel against its plain version on a 4M-sample
-     capture with 1024 starts, at the SIG and a DATA window length, timed;
+  9. the shared-source slice kernel against its plain version and
+     torch.gather on a 4M-sample capture with 1024 starts, at the SIG and a
+     DATA window length, timed;
  10. `SisoReceiver.decode_capture` on bench.py's 20-packet mixed HT/VHT
      capture: 20/20 exact MPDUs, equal to the port's CPU run;
  11. 80 MHz VHT and 40 MHz HT captures: every packet decodes;
@@ -30,9 +36,9 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      trigger: 1000/1000 per capture, the device trigger's positions against
      the host's, launches of every kernel in every capture, samples/s and
      packets/s (best of 3) and the host's waits on the device per capture;
- 13. the multi-chain slice kernel against its plain version on a [2, 4M]
-     capture with 1024 starts, at the SIG window and a 2x2 DATA window,
-     timed;
+ 13. the multi-chain slice kernel against its plain version and
+     torch.gather on a [2, 4M] capture with 1024 starts, at the SIG window
+     and a 2x2 DATA window, timed;
  14. `MimoReceiver.decode_capture_full` on the dual-chain universal capture
      (legacy, SISO HT/VHT by MRC, 2x2 VHT, a VHT NDP), with both chains live
      and with chain 0 dead: every packet decodes, one NDP with two chain
@@ -48,16 +54,46 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      1440/1440 per capture, launches of every kernel in every capture,
      samples/s and packets/s (best of 3), host waits and implicit syncs.
 The line before the last is a JSON object of the kernels; the last line is
-{"ok": true, "device": {...}}. Imports no JAX: the GPU machine has none.
+{"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package
+(the GPU machine has no JAX): only the port, torch and numpy.
 """
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
+import torch
+
+from ieee80211_tpu_torch import native
+from ieee80211_tpu_torch.mac import (MacConfig, aggregate_vht, build_udp_mpdu,
+                                     deaggregate_vht)
+from ieee80211_tpu_torch.models import RxPipeline
+from ieee80211_tpu_torch.ops import coding, sync
+from ieee80211_tpu_torch.ops.cuda import build
+from ieee80211_tpu_torch.ops.cuda import gather as kg
+from ieee80211_tpu_torch.ops.cuda import vit_floor as kf
+from ieee80211_tpu_torch.ops.cuda import viterbi as kv
+from ieee80211_tpu_torch.perf import vit_floor
+from ieee80211_tpu_torch.perf.timing import cuda_ms, device_ms, kernels_ms
+from ieee80211_tpu_torch.rx import (MimoDataDecoder, MimoReceiver,
+                                    SisoReceiver, get_mimo_decoder, receiver)
+from ieee80211_tpu_torch.specs import BW, CR, F, Mod
+from ieee80211_tpu_torch.specs.modulation import (ppdu_params_aggregate,
+                                                  ppdu_params_nonaggregate)
+from ieee80211_tpu_torch.tx import finalize, gen_ampdu, gen_mpdu
+from ieee80211_tpu_torch.tx.golden import bcc
+from ieee80211_tpu_torch.utils import c2r
 
 DEVICE = "cuda:0"
+# the least time of a kernel's work (bound_ms), from the H100 SXM's published
+# peaks: device memory 3.35 TB/s; float32 outside
+# the tensor cores 67 TFLOP/s, an FMA counted as two, so 3.35e13 single
+# lane operations (an add, a compare-select) per second
+HBM_BYTES_PER_S = 3.35e12
+LANE_OPS_PER_S = 67e12 / 2
+VIT_OPS_PER_CANDIDATE = 2   # an add and a compare-select
 # the card against the port's CPU run on the same rows: matmuls and
 # reductions sum in another order there
 CFO_TOL = 1e-5    # rad/sample
@@ -84,19 +120,39 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def bound(nbytes: float, ops: float):
+    """The least time of a kernel's work on the card, in ms, and what sets
+    it: its bytes (each input read once, each output written once) at the
+    device memory's rate, or its operations at the float32 lane rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / LANE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gather_index(starts, n: int, length: int, shape):
+    """The index of `torch.gather` that cuts the slice kernels' windows:
+    start clipped to [0, n - length] as the kernels clip it, plus 0..length-1
+    along the sample axis (the second to last of `shape`), as int64."""
+    s = starts.long().clamp(0, n - length)
+    pos = s[:, None] + torch.arange(length, device=starts.device)
+    view = (len(s),) + (1,) * (len(shape) - 3) + (length, 1)
+    return pos.view(view).expand(shape).contiguous()
+
+
+def window_samples(starts, n: int, length: int) -> int:
+    """How many samples of one chain the windows cover, each counted once."""
+    s = np.sort(np.clip(starts.cpu().numpy().astype(np.int64), 0,
+                        n - length))
+    prev_end = np.concatenate([[0], s[:-1] + length])
+    return int(np.sum(s + length - np.maximum(s, prev_end)))
+
+
 def make_batch(fmt: str, mcs: int, bw: int, payload: int, seed: int,
                cfo_hz: float, batch: int, device=None):
     """bench.py's RX input without JAX: one UDP MPDU in a VHT A-MPDU from the
     golden TX, triggered 8 samples early, repeated over the batch.
     Returns (RxPipeline on `device`, x2 [B, W, 2] float32, t0 [B] int32,
     mpdu)."""
-    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-    from ieee80211_tpu.specs import BW, F, Mod
-    from ieee80211_tpu.specs.modulation import ppdu_params_aggregate
-    from ieee80211_tpu.tx import finalize, gen_ampdu
-    from ieee80211_tpu_torch.models import RxPipeline
-    from ieee80211_tpu_torch.utils import c2r
-
     q = bw // 20
     cfg = MacConfig(subtype=8, addr1="f4:69:d5:80:0f:a0",
                     addr2="00:c0:ca:b1:5b:e1", addr3="f4:69:d5:80:0f:a0",
@@ -121,9 +177,6 @@ def api_capture():
     """bench.py's 20-packet capture (bench.py:362-381): seed 3, HT MCS5
     non-aggregated alternating with VHT MCS7 A-MPDU, UDP payloads of
     100-900 B, CFO uniform in +-50 kHz, gap 800. Returns (capture, mpdus)."""
-    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-    from ieee80211_tpu.specs import F, Mod
-    from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
     cfg = MacConfig(subtype=8, seq=2704, **MAC)
     rng = np.random.default_rng(3)
     parts, mpdus = [], []
@@ -159,9 +212,6 @@ def wideband_capture(bw: int):
     """Four packets at 40 MHz (HT MCS 1, 3, 5, 7) or 80 MHz (VHT MCS9
     A-MPDUs) with CFO 7 kHz x q, as tests/test_wideband_rx.py builds them.
     Returns (capture, mpdus)."""
-    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-    from ieee80211_tpu.specs import BW, F, Mod
-    from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
     q = bw // 20
     parts, mpdus = [], []
     for k in range(4):
@@ -224,9 +274,6 @@ def universal_capture(dead_chain0: bool):
     A-MPDU and a 2-stream VHT NDP through one 2x2 channel, gaps of 900;
     noise 2e-4, or 1e-4 with chain 0 faded to 1e-3. Returns (capture
     [2, N], {(fmt, mcs): mpdu})."""
-    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-    from ieee80211_tpu.specs import BW, F, Mod
-    from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
     noise = 1e-4 if dead_chain0 else 2e-4
     rng = np.random.default_rng(11)
     cfg, cfg_qos = MacConfig(subtype=0, **MIMO_MAC), MacConfig(subtype=8,
@@ -282,9 +329,6 @@ def wideband_mimo_captures():
     """tests/test_wideband_mimo.py's 2x2 cases at 40 MHz (HT MCS 8/12/15)
     and 80 MHz (VHT MCS 0/7/9), one capture each: [(bw, fmt, mcs, capture,
     mpdu)]."""
-    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-    from ieee80211_tpu.specs import BW, F, Mod
-    from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
     payload = b"wideband 2x2 MIMO beyond the reference envelope!"
     out = []
     for mcs in (8, 12, 15):
@@ -308,11 +352,6 @@ def hard_channel():
     seed 15's cond-11 2x2 channel, noise 4e-5 (seed 7777). Returns
     (capture [2, N], windows [1, 2, W, 2] float32 from the first trigger,
     mod, n_sym, expected bits, mpdu)."""
-    from ieee80211_tpu.mac import MacConfig, build_udp_mpdu
-    from ieee80211_tpu.specs import BW, F, Mod
-    from ieee80211_tpu.specs.modulation import ppdu_params_nonaggregate
-    from ieee80211_tpu.tx import finalize, gen_mpdu
-    from ieee80211_tpu_torch.ops import sync
     mpdu = build_udp_mpdu(b"wideband 2x2 MIMO beyond the reference envelope!"
                           * 4, MacConfig(seq=2704, **MAC))
     exp = np.concatenate([np.zeros(16, np.uint8), np.unpackbits(
@@ -344,9 +383,6 @@ def mimo_stream_captures(reps: int = N_MIMO_REP):
     uniform in +-40 kHz, 800 zeros before each; six captures of `reps`
     copies with 64 + 32k leading zeros. Returns (captures, packets per
     capture)."""
-    from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-    from ieee80211_tpu.specs import BW, F, Mod
-    from ieee80211_tpu.tx import finalize, gen_ampdu
     cfg = MacConfig(subtype=8, seq=2704, **MAC)
     h1 = np.array([0.9 - 0.3j, 0.5 + 0.8j])
     h22 = np.array([[1.1 + 0.2j, 0.3 - 0.5j], [-0.4 + 0.6j, 0.9 + 0.1j]])
@@ -380,9 +416,6 @@ def stream_pass(srx, caps, want: int, what: str):
     """One pass of `srx.decode_captures(caps)` under the sync debug mode:
     every capture must return `want` packets with a good FCS. Returns (host
     waits per capture, implicit syncs)."""
-    import warnings
-
-    import torch
     waits = srx.n_waits
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -405,7 +438,6 @@ def stream_pass(srx, caps, want: int, what: str):
 def best_of_3(srx, caps):
     """Host clock around three passes, each ending in a synchronize.
     Returns (best s, all runs, packets of the last pass)."""
-    import torch
     dts = []
     for _ in range(3):
         t = time.perf_counter()
@@ -416,7 +448,6 @@ def best_of_3(srx, caps):
 
 
 def main() -> int:
-    import torch
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -427,15 +458,6 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card)
     dev = torch.device(DEVICE)
-
-    from ieee80211_tpu.mac import deaggregate_vht
-    from ieee80211_tpu.specs import CR
-    from ieee80211_tpu.tx.golden import bcc
-    from ieee80211_tpu_torch.ops import coding, sync
-    from ieee80211_tpu_torch.ops.cuda import build
-    from ieee80211_tpu_torch.ops.cuda import gather as kg
-    from ieee80211_tpu_torch.ops.cuda import viterbi as kv
-    from ieee80211_tpu_torch.perf.timing import cuda_ms
 
     # -- 2. build ------------------------------------------------------------
     t = time.perf_counter()
@@ -550,7 +572,8 @@ def main() -> int:
               f" packets decode to the exact MPDU with a good FCS")
         check(n_ok == b, f"{bw} MHz every packet decodes")
         # the same first rows through the port's plain CPU path
-        cpu_pipe = type(pipe)(pipe.mod, pipe.n_sym, pipe.psdu_len)
+        cpu_pipe = RxPipeline(pipe.mod, pipe.n_sym, pipe.psdu_len,
+                              device="cpu")
         ref = cpu_pipe.step(torch.from_numpy(x2[:4]), torch.from_numpy(t0[:4]))
         for key in ("bits", "ltf_start", "lsig_ok"):
             check(torch.equal(out[key][:4], ref[key]), f"{bw} MHz {key} "
@@ -563,23 +586,40 @@ def main() -> int:
               f"{bw} MHz cfo/snr vs CPU")
 
     # -- 7. times ------------------------------------------------------------
-    # Kernel and plain times are one wrapper call each between two events,
-    # so the host's launch cost is inside them.
+    # "ms" and "plain_ms" are one wrapper call each between two CUDA events,
+    # the host's launch cost inside; "device_ms" is the kernel's own time,
+    # back-to-back launches queued behind a spin of the card; "library_ms"
+    # is one call of the PyTorch function that computes the same result,
+    # between two CUDA events (its own device time beside it); "bound_ms"
+    # is the least time of the work.
     tag = f"({card})"
     times = {}
 
-    def time_pair(key, shape, kernel, plain):
-        times[key] = (cuda_ms(kernel), cuda_ms(plain))
-        print(f"time {key} {shape}: kernel {times[key][0]:.4f} ms, plain "
-              f"{times[key][1]:.4f} ms {tag}")
+    def time_pair(key, shape, kernel, plain, nbytes, ops=0.0, library=None):
+        t = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
+             "plain_ms": cuda_ms(plain), "library_ms": None}
+        t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
+        lib = ""
+        if library is not None:
+            t["library_ms"] = cuda_ms(library)
+            t["library_device_ms"] = device_ms(library)
+            lib = (f", library {t['library_ms']:.4f} ms (device "
+                   f"{t['library_device_ms']:.4f} ms)")
+        times[key] = t
+        print(f"time {key} {shape}: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms{lib}, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) {tag}")
 
-    for name in ("data", "lsig", "data80"):
+    for name in ("data", "lsig", "data80", "mimo_vht4", "bucket_vht7"):
         x, cr, n_bits = vit_inputs[name]
         lp = coding._pairs(x, cr, n_bits, coding.RADIX)
-        time_pair(f"viterbi_{name}", f"[{x.shape[0]} x {n_bits} {cr.name}]",
+        b, t_pad, _ = lp.shape
+        time_pair(f"viterbi_{name}", f"[{b} x {n_bits} {cr.name}]",
                   lambda: kv.viterbi_pairs_cuda(lp, w0, w1, coding.RENORM),
                   lambda: coding.viterbi_pairs_plain(lp, w0, w1,
-                                                     coding.RENORM))
+                                                     coding.RENORM),
+                  nbytes=lp.nbytes + b * t_pad * 4 + w0.nbytes + w1.nbytes,
+                  ops=VIT_OPS_PER_CANDIDATE * b * (t_pad // kv.K) * 64 * 16)
     for bw, (cell, pipe, x2, t0, _) in rows.items():
         xd = torch.from_numpy(x2).to(dev)
         td = torch.from_numpy(t0).to(dev)
@@ -589,31 +629,42 @@ def main() -> int:
         for what, length, starts in (
                 ("sync", sync_len, td),
                 ("z", pipe.step.z_len(), outs[bw]["ltf_start"] - 16 * q)):
+            idx = gather_index(starts, n, length, (b, length, 2))
+            check(torch.equal(torch.gather(xd, 1, idx),
+                              kg.batch_slice_iq_cuda(xd, starts, length)),
+                  f"torch.gather == slice kernel ({what}, {bw} MHz)")
             time_pair(f"slice_{what}_{bw}", f"[{b} x {n} -> {length}]",
                       lambda: kg.batch_slice_iq_cuda(xd, starts, length),
-                      lambda: sync.batch_slice_iq_plain(xd, starts, length))
+                      lambda: sync.batch_slice_iq_plain(xd, starts, length),
+                      nbytes=2 * b * length * 8 + b * 4,
+                      library=lambda: torch.gather(xd, 1, idx))
         with torch.inference_mode():
             step_ms = cuda_ms(lambda: pipe.step(xd, td))
+            busy_ms = kernels_ms(lambda: pipe.step(xd, td))
+        busy = "not measured" if busy_ms is None else f"{busy_ms:.4f} ms"
         print(f"time step {bw} MHz VHT MCS{cell['mcs']} [{b} x {n}]: "
-              f"{step_ms:.4f} ms, {b * n / (step_ms * 1e-3):.6g} samples/s "
-              f"{tag}")
+              f"{step_ms:.4f} ms, {b * n / (step_ms * 1e-3):.6g} samples/s; "
+              f"kernels {busy} of device time per step {tag}")
 
     # -- 8. the Viterbi floor probe -----------------------------------------
-    from ieee80211_tpu_torch.ops.cuda import vit_floor as kf
-    from ieee80211_tpu_torch.perf import vit_floor
     probe = vit_floor.measure(dev)
     launches["vit_floor"] += probe["launches"]
     b, n_blk, _ = probe["shape"]
+    # the probe's function: per packet and block one sum of 2k LLRs and one
+    # product, then two adds per state
+    probe["bound_ms"], probe["bound_by"] = bound(
+        b * n_blk * 2 * kf.K * 4 + b * 64 * 4,
+        b * n_blk * (2 * kf.K + 2 * 64))
     print(f"floor probe [{b} x {n_blk} blocks x 8]: kernel == plain; probe "
-          f"{probe['ms']:.4f} ms, plain {probe['plain_ms']:.4f} ms, "
-          f"viterbi_r4 on [{b} x {n_blk * kf.K} x 2] "
-          f"{probe['viterbi_ms']:.4f} ms, ACS share "
-          f"{probe['acs_share']:.4f} {tag}")
+          f"{probe['ms']:.4f} ms (device {probe['device_ms']:.4f} ms), plain "
+          f"{probe['plain_ms']:.4f} ms, bound {probe['bound_ms']:.4f} ms "
+          f"({probe['bound_by']}); viterbi_r4 on [{b} x {n_blk * kf.K} x 2] "
+          f"{probe['viterbi_ms']:.4f} ms (device "
+          f"{probe['viterbi_device_ms']:.4f} ms); probe / viterbi device "
+          f"time {probe['device_share']:.4f} {tag}")
     check(probe["launches"] > 0, "the probe run launched the probe kernel")
 
     # -- 9. shared-source slice kernel vs plain ------------------------------
-    from ieee80211_tpu.specs import F, Mod
-    from ieee80211_tpu_torch.rx import SisoReceiver, receiver
     rng = np.random.default_rng(12)
     n_cap = 1 << 22
     cap_dev = torch.from_numpy(rng.standard_normal((n_cap, 2))
@@ -631,10 +682,17 @@ def main() -> int:
         shared_err = max(shared_err, float((got - ref).abs().max()))
         check(torch.equal(got, ref), f"shared slice kernel == plain "
                                      f"({what})")
+        idx = gather_index(st, n_cap, length, (len(st), length, 2))
+        wide = cap_dev.expand(len(st), n_cap, 2)
+        check(torch.equal(torch.gather(wide, 1, idx), got),
+              f"torch.gather == shared slice kernel ({what})")
         time_pair(f"slice_shared_{what}", f"[{n_cap} -> 1024 x {length}]",
                   lambda: kg.capture_slice_iq_cuda(cap_dev, st, length),
                   lambda: receiver.capture_windows_plain(cap_dev, st,
-                                                         length))
+                                                         length),
+                  nbytes=(window_samples(st, n_cap, length) * 8
+                          + len(st) * (length * 8 + 4)),
+                  library=lambda: torch.gather(wide, 1, idx))
     del cap_dev
 
     def reset():
@@ -656,7 +714,6 @@ def main() -> int:
     mimo_kernels = ("viterbi", "slice", "slice_multi")
 
     # -- 10. decode_capture on bench.py's 20-packet capture ------------------
-    from ieee80211_tpu import native
     api_cap, api_mpdus = api_capture()
     rx = SisoReceiver(device=dev)
     reset()
@@ -670,13 +727,14 @@ def main() -> int:
     print(f"decode_capture: {n_ok}/{N_API} packets decode to the exact MPDU "
           f"with a good FCS")
     check(len(res) == N_API and n_ok == N_API, "20/20 packets decode")
-    ref = SisoReceiver().decode_capture(api_cap)
+    ref = SisoReceiver(device="cpu").decode_capture(api_cap)
     print("decode_capture vs CPU run: fields equal, "
           + check_same_packets(res, ref, "decode_capture"))
     noisy = add_noise(api_cap, 30.0, seed=11)
     print("decode_capture at 30 dB SNR vs CPU run: fields equal, "
           + check_same_packets(rx.decode_capture(noisy),
-                               SisoReceiver().decode_capture(noisy),
+                               SisoReceiver(device="cpu").decode_capture(
+                                   noisy),
                                "noisy decode_capture", evm_tol=EVM_TOL))
 
     # -- 11. wideband --------------------------------------------------------
@@ -741,9 +799,6 @@ def main() -> int:
     del caps, rx_h, rx_d
 
     # -- 13. multi-chain slice kernel vs plain -------------------------------
-    from ieee80211_tpu.specs import BW
-    from ieee80211_tpu_torch.rx import (MimoDataDecoder, MimoReceiver,
-                                        get_mimo_decoder)
     rng = np.random.default_rng(13)
     cap_dev = torch.from_numpy(rng.standard_normal((2, n_cap, 2))
                                .astype(np.float32)).to(dev)
@@ -759,13 +814,19 @@ def main() -> int:
         multi_err = max(multi_err, float((got - ref).abs().max()))
         check(torch.equal(got, ref), f"multi-chain slice kernel == plain "
                                      f"({what})")
+        idx = gather_index(st, n_cap, length, (len(st), 2, length, 2))
+        wide = cap_dev.expand(len(st), 2, n_cap, 2)
+        check(torch.equal(torch.gather(wide, 2, idx), got),
+              f"torch.gather == multi-chain slice kernel ({what})")
         time_pair(f"slice_multi_{what}", f"[2 x {n_cap} -> 1024 x 2 x "
                                          f"{length}]",
                   lambda: kg.capture_slice_iq_mimo_cuda(cap_dev, st, length),
                   lambda: receiver.capture_windows_mimo_plain(cap_dev, st,
-                                                              length))
+                                                              length),
+                  nbytes=2 * (window_samples(st, n_cap, length) * 8
+                              + len(st) * length * 8) + len(st) * 4,
+                  library=lambda: torch.gather(wide, 2, idx))
     del cap_dev
-
 
     # -- 14. MimoReceiver on the dual-chain universal capture ----------------
     for dead in (False, True):
@@ -791,7 +852,8 @@ def main() -> int:
               and all(n.ltf_iq.shape == (128,)
                       and np.isfinite(n.ltf_iq).all() for n in ndps[0]),
               f"dual-chain ({what}): one NDP with two chain captures")
-        ref_pkts, ref_ndps = MimoReceiver().decode_capture_full(ucap)
+        ref_pkts, ref_ndps = MimoReceiver(
+            device="cpu").decode_capture_full(ucap)
         d_ndp = max(float(np.abs(a.ltf_iq - b.ltf_iq).max())
                     for a, b in zip(ndps[0], ref_ndps[0]))
         check(len(ref_ndps) == 1 and d_ndp <= 1e-4,
@@ -893,35 +955,28 @@ def main() -> int:
               f"{mimo_rate[det][1]:.6g} packets/s {tag}")
 
     # -- 18. the kernels line ------------------------------------------------
+    def entry(name, source, replaces, key, err, t):
+        return {"name": name, "route": "cuda",
+                "source": f"ieee80211_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "device_ms": t["device_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    gather_tpu = "ieee80211_tpu/ops/pallas/gather.py:78"
+    probe["library_ms"] = None   # no PyTorch call computes the probe
     kernels = [
-        {"name": "viterbi_r4", "route": "cuda",
-         "source": "ieee80211_tpu_torch/csrc/viterbi.cu",
-         "replaces": "ieee80211_tpu/ops/pallas/viterbi.py:272",
-         "launches": launches["viterbi"], "max_abs_err": vit_err,
-         "ms": times["viterbi_data"][0], "plain_ms": times["viterbi_data"][1]},
-        {"name": "slice_iq", "route": "cuda",
-         "source": "ieee80211_tpu_torch/csrc/gather.cu",
-         "replaces": "ieee80211_tpu/ops/pallas/gather.py:78",
-         "launches": launches["slice"], "max_abs_err": slice_err,
-         "ms": times["slice_z_20"][0], "plain_ms": times["slice_z_20"][1]},
-        {"name": "slice_iq_shared", "route": "cuda",
-         "source": "ieee80211_tpu_torch/csrc/gather.cu",
-         "replaces": "ieee80211_tpu/ops/pallas/gather.py:78",
-         "launches": launches["slice_shared"], "max_abs_err": shared_err,
-         "ms": times["slice_shared_sig"][0],
-         "plain_ms": times["slice_shared_sig"][1]},
-        {"name": "slice_iq_mimo", "route": "cuda",
-         "source": "ieee80211_tpu_torch/csrc/gather.cu",
-         "replaces": "ieee80211_tpu/ops/pallas/gather.py:78",
-         "launches": launches["slice_multi"], "max_abs_err": multi_err,
-         "ms": times["slice_multi_sig"][0],
-         "plain_ms": times["slice_multi_sig"][1]},
-        {"name": "vit_floor", "route": "cuda",
-         "source": "ieee80211_tpu_torch/csrc/vit_floor.cu",
-         "replaces": "perf_vit_floor.py:37",
-         "launches": launches["vit_floor"],
-         "max_abs_err": probe["max_abs_err"],
-         "ms": probe["ms"], "plain_ms": probe["plain_ms"]},
+        entry("viterbi_r4", "viterbi.cu",
+              "ieee80211_tpu/ops/pallas/viterbi.py:272", "viterbi", vit_err,
+              times["viterbi_data"]),
+        entry("slice_iq", "gather.cu", gather_tpu, "slice", slice_err,
+              times["slice_z_20"]),
+        entry("slice_iq_shared", "gather.cu", gather_tpu, "slice_shared",
+              shared_err, times["slice_shared_sig"]),
+        entry("slice_iq_mimo", "gather.cu", gather_tpu, "slice_multi",
+              multi_err, times["slice_multi_sig"]),
+        entry("vit_floor", "vit_floor.cu", "perf_vit_floor.py:37",
+              "vit_floor", probe["max_abs_err"], probe),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

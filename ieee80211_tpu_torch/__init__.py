@@ -10,10 +10,21 @@ is easy to find:
                package has ops/pallas/)
   * csrc/      the kernels' CUDA C++ sources, built with nvcc at first use
   * models/    the flagship fixed-config receiver (`RxPipeline`)
+  * rx/        the streaming receivers (`SisoReceiver`, `MimoReceiver`)
+  * perf/      timing helpers and the Viterbi floor probe
 
-It reuses the JAX package's jax-free modules (`ieee80211_tpu.specs`,
-`ieee80211_tpu.tx.golden`, `ieee80211_tpu.mac`) instead of copying them, and
-never imports jax: the machine with the GPU has none.
+It imports nothing of the JAX package and never imports jax: the machine
+with the GPU has none. It carries its own copies of the JAX package's
+jax-free modules instead, each held equal to its original by a test:
+
+  * specs/     tables, enums, PPDU descriptors, interleavers, CRCs
+  * mac/       MAC frame build/parse and A-MPDU (de)aggregation
+  * native/    the C++ host runtime, built with g++ into _build/ at first use
+  * tx/        the golden numpy transmitter (golden.py), the oracle
+
+Its entry points (`RxPipeline`, `SisoReceiver`, `MimoReceiver` and the
+decoder getters) run on the card unless the caller asks for the CPU with
+device="cpu".
 """
 import torch
 

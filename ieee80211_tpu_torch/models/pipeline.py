@@ -18,10 +18,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ieee80211_tpu.specs import BW, CR, F, Mod, tables
-from ieee80211_tpu.specs import interleaver as ilv
-
 from ..ops import coding, demod, sync
+from ..specs import BW, CR, F, Mod, tables
+from ..specs import interleaver as ilv
+from ..utils.device import entry_device
 from ..utils.riq import r2c
 
 OFF_LSIG = 128
@@ -187,7 +187,8 @@ class RxStep(nn.Module):
 
 class RxPipeline(nn.Module):
     """Fixed-config receiver: `step(x2, t0)` runs the receive step on the
-    module's device (default the CPU)."""
+    module's device: the card unless `device="cpu"` asks for the CPU
+    (without a card, the default raises)."""
 
     def __init__(self, mod: Mod, n_sym: int, psdu_len: int,
                  device=None):
@@ -195,7 +196,7 @@ class RxPipeline(nn.Module):
         self.mod = mod
         self.n_sym = n_sym
         self.psdu_len = psdu_len
-        self.step = RxStep(mod, n_sym).to(device)
+        self.step = RxStep(mod, n_sym).to(entry_device(device))
 
     def window_len(self) -> int:
         base = 192 + 128 + 80  # sync slack + LTF + L-SIG

@@ -20,8 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ieee80211_tpu.specs import CR, tables
-
+from ..specs import CR, tables
 from .cuda.viterbi import viterbi_pairs_cuda
 
 NEG = -1e30

@@ -30,7 +30,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (pointers and the stream as c_void_p: a bare Python int
     # would pass as a 32-bit int and cut the pointer)
-    "viterbi_r4_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "viterbi_r4_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "slice_iq_launch": [_P, _P, _P, _I, _I, _I, _P],
     "slice_iq_shared_launch": [_P, _P, _P, _I, _I, _I, _P],
     "slice_iq_multi_launch": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -15,14 +15,6 @@ LAUNCHES = 0   # kernel launches so far: a run can show that it went through
 K = 4          # the kernel's radix
 
 
-def _select_masks(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
-    """[64, 16] uint8: bit (2j + c) set where coded bit c of step j on path
-    p into state s is 1 (the weights of `_radix_tables(4)`)."""
-    sel = torch.stack([w0, w1], dim=-1).reshape(64, 1 << K, 2 * K) != 0
-    weights = torch.arange(2 * K, device=sel.device, dtype=torch.int32)
-    return (sel.to(torch.int32) << weights).sum(dim=-1).to(torch.uint8)
-
-
 def viterbi_pairs_cuda(lp: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
                        renorm: int) -> torch.Tensor:
     """Decode depunctured pairs [B, T, 2] float32 (T a multiple of 4) on the
@@ -42,6 +34,9 @@ def viterbi_pairs_cuda(lp: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
                          f"[64, {1 << K}, {K}], got {tuple(w0.shape)}")
     if w0.device != lp.device or w1.device != lp.device:
         raise ValueError("radix tables must lie on the LLRs' device")
+    if (w0.dtype != torch.float32 or w1.dtype != torch.float32
+            or not (w0.is_contiguous() and w1.is_contiguous())):
+        raise ValueError("radix tables must be contiguous float32")
     b, t_pad, _ = lp.shape
     if t_pad % K:
         raise ValueError(f"trellis length {t_pad} is not a multiple of {K}")
@@ -51,14 +46,19 @@ def viterbi_pairs_cuda(lp: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
     bits = torch.empty((b, t_pad), dtype=torch.int32, device=lp.device)
     if b == 0 or n_blk == 0:
         return bits
-    masks = _select_masks(w0, w1)
-    # survivor decisions: one byte per state per block, in device memory
-    dec = torch.empty((b, n_blk, 64), dtype=torch.uint8, device=lp.device)
+    # the kernel reads a block's LLRs, and a table row, as float4s
+    lp, w0, w1 = (a if a.data_ptr() % 16 == 0 else a.clone()
+                  for a in (lp, w0, w1))
+    # survivor decisions in device memory: 4 bits per state per block, one
+    # 32-bit word per lane (states l and l + 32) per group of 4 blocks
+    dec = torch.empty((b, -(-n_blk // 4), 32), dtype=torch.int32,
+                      device=lp.device)
     lib = library()
     with torch.cuda.device(lp.device):
         err = lib.viterbi_r4_launch(
-            lp.data_ptr(), masks.data_ptr(), dec.data_ptr(), bits.data_ptr(),
-            b, n_blk, renorm, torch.cuda.current_stream().cuda_stream)
+            lp.data_ptr(), w0.data_ptr(), w1.data_ptr(), dec.data_ptr(),
+            bits.data_ptr(), b, n_blk, renorm,
+            torch.cuda.current_stream().cuda_stream)
     check(lib, err, "viterbi_r4_launch")
     LAUNCHES += 1
     return bits

@@ -22,8 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ieee80211_tpu.specs import BW, M, Mod, tables
-
+from ..specs import BW, M, Mod, tables
 from ..utils.riq import r2c, r_of
 from . import sync
 
@@ -99,7 +98,7 @@ def static_symbol_windows(z: torch.Tensor, off: int, n_sym: int,
 @lru_cache(maxsize=None)
 def pilot_refs(mod: Mod, n_sym: int, pidx0: int, iss: int = 0) -> np.ndarray:
     """Expected pilot values per symbol [n_sym, nSP] (polarity + rotation)."""
-    from ieee80211_tpu.tx.golden import pilot_sequence
+    from ..tx.golden import pilot_sequence
     return pilot_sequence(mod, n_sym, iss, pidx0=pidx0)
 
 

@@ -224,10 +224,10 @@ def find_triggers_np(x: np.ndarray, thresh: float = 0.5, plateau: int = 20,
     """STF trigger positions of a 1-D complex capture, on the host: where
     the 16q-lag auto-correlation stays above `thresh` for `plateau`
     consecutive samples (20 MHz units, scaled by q), at least min_gap
-    apart. Uses the JAX package's jax-free native runtime
-    (ieee80211_tpu.native) when it is available, as the JAX function does;
-    a numpy scan otherwise."""
-    from ieee80211_tpu.native import find_triggers as _native_triggers
+    apart. Uses the native host runtime (the port's copy,
+    ieee80211_tpu_torch.native) when it is available, as the JAX function
+    does; a numpy scan otherwise."""
+    from ..native import find_triggers as _native_triggers
     x = np.asarray(x)
     plateau, min_gap = plateau * q, min_gap * q
     nt = _native_triggers(x, thresh=thresh, plateau=plateau,

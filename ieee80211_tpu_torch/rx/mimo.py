@@ -26,14 +26,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ieee80211_tpu import native
-from ieee80211_tpu.specs import BW, F, Mod, tables
-from ieee80211_tpu.specs import interleaver as ilv
-from ieee80211_tpu.specs.modulation import ppdu_params_nonaggregate
-
+from .. import native
 from ..models.pipeline import as_tables
 from ..mu.sounding import NdpCapture
 from ..ops import coding, demod, sync
+from ..specs import BW, F, Mod, tables
+from ..specs import interleaver as ilv
+from ..specs.modulation import ppdu_params_nonaggregate
 from ..utils.riq import r2c
 from .receiver import (MIN_TRIGGER_GAP, OFF_NLLTF, PacketResult,
                        SisoDataDecoder, SisoReceiver, _device,
@@ -58,9 +57,10 @@ def _deparser_gather(mod: Mod):
 
 def mimo_tables_from_numpy(mod: Mod, n_sym: int):
     """Every constant table of a 2-stream DATA decoder for (mod, n_sym), as
-    numpy, built by the JAX package's helpers: the SISO decoder's tables
-    (DFT, LTF references, tone maps, Viterbi radix tables, scrambler, and
-    the SIG-B ones for VHT) with the per-stream ones in place of stream 0's:
+    numpy, built by copies of the JAX package's helpers: the SISO decoder's
+    tables (DFT, LTF references, tone maps, Viterbi radix tables, scrambler,
+    and the SIG-B ones for VHT) with the per-stream ones in place of stream
+    0's:
     `rx_perm` [2, nCBPSS], for HT `pilot_ref` [nSTS, S, nP] (VHT sends the
     same pilots on both streams: [S, nP]), the P matrix of the LTFs, the
     stream deparser as flat indices into [2 * nCBPSS] per encoder, and the
@@ -298,7 +298,8 @@ def _cached_mimo(mod: Mod, n_sym_bucket: int, detector: str,
 def get_mimo_decoder(mod: Mod, n_sym_bucket: int, detector: str = "ml",
                      device=None) -> MimoDataDecoder:
     """The 2-stream decoder of (mod, bucket, detector) with its tables on
-    `device` (default the CPU), built once per process."""
+    `device` (default the card; "cpu" for the CPU), built once per
+    process."""
     return _cached_mimo(mod, n_sym_bucket, detector, _device(device))
 
 
@@ -310,7 +311,8 @@ def _cached_mrc(mod: Mod, n_sym_bucket: int,
 
 def get_mrc_decoder(mod: Mod, n_sym_bucket: int,
                     device=None) -> MrcDataDecoder:
-    """The MRC decoder of (mod, bucket) with its tables on `device`."""
+    """The MRC decoder of (mod, bucket) with its tables on `device`
+    (default the card; "cpu" for the CPU)."""
     return _cached_mrc(mod, n_sym_bucket, _device(device))
 
 
@@ -334,7 +336,8 @@ class _FutsWithCtx(list):
 
 class MimoReceiver(SisoReceiver):
     """Auto-detecting universal dual-chain receiver over captures [2, N], on
-    the receiver's device (default the CPU).
+    the receiver's device: the card unless `device="cpu"` asks for the
+    CPU (without a card, the default raises).
 
     Batched like SisoReceiver, whose streaming entry `decode_captures[_full]`
     it inherits: one capture upload, one MRC SIG-parse batch (one packed

@@ -39,19 +39,19 @@ import torch
 import torch.nn.functional as F_nn
 from torch import nn
 
-from ieee80211_tpu import native
-from ieee80211_tpu.mac import deaggregate_ht, deaggregate_vht
-from ieee80211_tpu.specs import BW, CR, F, Mod, tables
-from ieee80211_tpu.specs import interleaver as ilv
-from ieee80211_tpu.specs.crc import fcs_ok
-from ieee80211_tpu.specs.modulation import ppdu_params_nonaggregate
-from ieee80211_tpu.specs.tables import crc8_bits
-
+from .. import native
+from ..mac import deaggregate_ht, deaggregate_vht
 from ..models.pipeline import as_tables, data_tables_from_numpy
 from ..mu.sounding import NdpCapture
 from ..ops import coding, demod, sync
 from ..ops.cuda.gather import (capture_slice_iq_cuda,
                                capture_slice_iq_mimo_cuda)
+from ..specs import BW, CR, F, Mod, tables
+from ..specs import interleaver as ilv
+from ..specs.crc import fcs_ok
+from ..specs.modulation import ppdu_params_nonaggregate
+from ..specs.tables import crc8_bits
+from ..utils.device import entry_device as _device
 from ..utils.metrics import DecodeStats
 from ..utils.riq import r2c
 
@@ -142,7 +142,7 @@ MIN_TRIGGER_GAP = 600  # trigger dedup distance (20 MHz units): the
 
 def sig_tables_from_numpy(q: int):
     """Every constant table of the SIG parse at oversample factor q, as
-    numpy, built by the JAX package's helpers."""
+    numpy, built by copies of the JAX package's helpers."""
     bw = {1: BW.BW20, 2: BW.BW40, 4: BW.BW80}[q]
     w0, w1 = coding._radix_tables(coding.RADIX)
     dft_re, dft_im = demod._dft_mats(64 * q)
@@ -692,17 +692,8 @@ def _cached_decoder(mod: Mod, n_sym_bucket: int,
 def get_data_decoder(mod: Mod, n_sym_bucket: int,
                      device=None) -> SisoDataDecoder:
     """The decoder of (mod, bucket) with its tables on `device` (default
-    the CPU), built once per process."""
+    the card; "cpu" for the CPU), built once per process."""
     return _cached_decoder(mod, n_sym_bucket, _device(device))
-
-
-def _device(device) -> torch.device:
-    """torch.device with the index of a bare "cuda" made explicit, so that
-    one card gives one cache key."""
-    dev = torch.device(device if device is not None else "cpu")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def assemble_packet(fmt: F, mod: Mod, psdu_len: int, scr_bits: np.ndarray,
@@ -782,7 +773,8 @@ class _Fetch:
 
 class SisoReceiver:
     """Decode packets from a capture with automatic format detection, on the
-    receiver's device (default the CPU).
+    receiver's device: the card unless `device="cpu"` asks for the CPU
+    (without a card, the default raises).
 
     The capture is uploaded once (int8-quantized with `ingest="int8"`, and
     by default beyond ~1M samples), all SIG parsing runs as one batch with a

@@ -14,7 +14,7 @@ from ieee80211_tpu.ops import demod as jdemod
 from ieee80211_tpu.specs import BW, F, M, Mod, tables
 from ieee80211_tpu.specs import interleaver as ilv
 from ieee80211_tpu_torch.ops import demod
-import torch_parity  # noqa: F401  (caps torch's threads)
+from torch_parity import port_mod
 
 GRID_RTOL = 1e-5
 LLR_RTOL = 1e-4
@@ -104,8 +104,8 @@ def test_demod_data_siso_close(mod):
                                  n_sym, pidx0)
     key = (mod.bw, mod.fmt == F.L)
     got = demod.demod_data_siso(
-        torch.from_numpy(grids), torch.from_numpy(chan), mod,
-        torch.from_numpy(demod.pilot_refs(mod, n_sym, pidx0)
+        torch.from_numpy(grids), torch.from_numpy(chan), port_mod(mod),
+        torch.from_numpy(demod.pilot_refs(port_mod(mod), n_sym, pidx0)
                          .astype(np.float32)),
         torch.from_numpy(tables.PILOT_GRID[key].astype(np.int64)),
         torch.from_numpy(tables.DATA_GRID[key].astype(np.int64)),
@@ -177,7 +177,8 @@ def test_demod_data_siso_n_valid_close(mod):
     eq = np.zeros((3, n_sym, n), np.complex64)
     eq[..., tables.DATA_GRID[key]] = _points(rng, mod.mod,
                                              (3, n_sym, mod.nSD))
-    eq[..., tables.PILOT_GRID[key]] = demod.pilot_refs(mod, n_sym, pidx0)
+    eq[..., tables.PILOT_GRID[key]] = demod.pilot_refs(port_mod(mod), n_sym,
+                                                       pidx0)
     grids = ((eq + 0.02 * _cplx(rng, eq.shape)) * chan[:, None]).astype(
         np.complex64)
     nv = np.array([6, 4, 1], np.int32)
@@ -185,8 +186,8 @@ def test_demod_data_siso_n_valid_close(mod):
         jnp.asarray(grids), jnp.asarray(chan), mod, n_sym, pidx0,
         with_snr=True, n_valid_sym=jnp.asarray(nv))
     llr, evm = demod.demod_data_siso(
-        torch.from_numpy(grids), torch.from_numpy(chan), mod,
-        torch.from_numpy(demod.pilot_refs(mod, n_sym, pidx0)
+        torch.from_numpy(grids), torch.from_numpy(chan), port_mod(mod),
+        torch.from_numpy(demod.pilot_refs(port_mod(mod), n_sym, pidx0)
                          .astype(np.float32)),
         torch.from_numpy(tables.PILOT_GRID[key].astype(np.int64)),
         torch.from_numpy(tables.DATA_GRID[key].astype(np.int64)),

@@ -19,7 +19,7 @@ from ieee80211_tpu.ops import demod as jdemod
 from ieee80211_tpu.specs import BW, F, M, Mod, tables
 from ieee80211_tpu.specs import interleaver as ilv
 from ieee80211_tpu_torch.ops import demod
-import torch_parity  # noqa: F401  (caps torch's threads)
+from torch_parity import port_mod
 
 GRID_RTOL = 1e-5
 ZF_RTOL = 1e-4
@@ -197,7 +197,8 @@ def test_demod_data_mrc_close(mod, n_valid):
     eq = np.zeros((3, n_sym, n), np.complex64)
     eq[..., tables.DATA_GRID[key]] = tab[rng.integers(
         0, len(tab), (3, n_sym, mod.nSD))]
-    eq[..., tables.PILOT_GRID[key]] = demod.pilot_refs(mod, n_sym, pidx0)
+    eq[..., tables.PILOT_GRID[key]] = demod.pilot_refs(port_mod(mod), n_sym,
+                                                       pidx0)
     chan = _cplx(rng, (3, 2, n)) + 1.0
     grids = (chan[:, :, None] * eq[:, None]
              + 0.03 * _cplx(rng, (3, 2, n_sym, n))).astype(np.complex64)
@@ -206,8 +207,9 @@ def test_demod_data_mrc_close(mod, n_valid):
         jnp.asarray(grids), jnp.asarray(chan), mod, n_sym, pidx0,
         with_snr=True, n_valid_sym=None if nv is None else jnp.asarray(nv))
     llr, evm = demod.demod_data_mrc(
-        _t(grids), _t(chan), mod,
-        _t(demod.pilot_refs(mod, n_sym, pidx0).astype(np.float32)),
+        _t(grids), _t(chan), port_mod(mod),
+        _t(demod.pilot_refs(port_mod(mod), n_sym, pidx0)
+           .astype(np.float32)),
         _t(tables.PILOT_GRID[key].astype(np.int64)),
         _t(tables.DATA_GRID[key].astype(np.int64)),
         _t(ilv.rx_perm(mod, 0)), with_snr=True,

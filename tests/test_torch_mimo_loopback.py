@@ -32,7 +32,7 @@ from ieee80211_tpu_torch.rx import MimoDataDecoder, MimoReceiver
 from ieee80211_tpu_torch.rx.receiver import SigTables
 import test_loopback_mimo as lb
 import test_wideband_mimo as wb
-from torch_parity import assert_same_packets_all
+from torch_parity import assert_same_packets_all, port_mod
 
 Q = {BW.BW20: 1, BW.BW40: 2, BW.BW80: 4}
 
@@ -107,8 +107,8 @@ def capture(request):
 @pytest.mark.parametrize("detector", ["zf", "ml", "auto"])
 def test_decoders_equal_jax(capture, detector):
     fs, cap, want, ref = capture
-    got = MimoReceiver(sample_rate_hz=fs, detector=detector).decode_capture(
-        cap)
+    got = MimoReceiver(sample_rate_hz=fs, detector=detector,
+                       device="cpu").decode_capture(cap)
     # 2x2 packets report one EVM SNR per stream, SISO packets one
     assert [(r.fmt, r.mcs, len(r.sssnr), r.mpdus[0] if r.mpdus else None)
             for r in got] == want
@@ -166,7 +166,8 @@ def test_ml_beats_zf_on_hard_channel_in_both(hard_channel):
     assert int(ls[0]) == int(jls[0])
     errs = {}
     for det in ("ml", "zf"):
-        bits, _ = MimoDataDecoder(mod, n_sym, det).decode(x, ls, cfo)
+        bits, _ = MimoDataDecoder(port_mod(mod), n_sym, det).decode(x, ls,
+                                                                    cfo)
         jbits, _ = JaxMimoDataDecoder(mod, n_sym, det).decode(
             jnp.asarray(w), jls, jcfo)
         errs[det] = (int(np.sum(bits[0, :len(exp)] != exp)),
@@ -180,9 +181,10 @@ def test_auto_retry_recovers_what_zf_loses(hard_channel):
     re-dispatches that packet through ML and decodes it, equal to JAX's
     "auto" decode."""
     cap, _, mod, _, _, mpdu = hard_channel
-    zf = MimoReceiver(sample_rate_hz=40e6, detector="zf").decode_capture(cap)
+    zf = MimoReceiver(sample_rate_hz=40e6, detector="zf",
+                      device="cpu").decode_capture(cap)
     assert [(r.mcs, r.fcs_ok) for r in zf] == [(15, False)]
-    got = MimoReceiver(sample_rate_hz=40e6).decode_capture(cap)
+    got = MimoReceiver(sample_rate_hz=40e6, device="cpu").decode_capture(cap)
     assert [(r.mcs, r.fcs_ok) for r in got] == [(15, True)]
     assert got[0].mpdus == [mpdu]
     assert_same_packets_all(got, JaxMimoReceiver(

@@ -15,6 +15,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from ieee80211_tpu.ops import demod as jdemod
 from ieee80211_tpu.rx import mimo as jmimo
@@ -28,7 +29,7 @@ from ieee80211_tpu_torch.rx import (MimoDataDecoder, MimoReceiver,
 from ieee80211_tpu_torch.rx import mimo
 from test_dual_chain_universal import _mixed_capture
 from test_torch_receiver_plan import _assert_plans_equal, _random_meta
-from torch_parity import assert_same_packets_all, snr_tol_db
+from torch_parity import assert_same_packets_all, port_mod, snr_tol_db
 
 RATES = [20e6, 40e6, 80e6]
 
@@ -60,7 +61,7 @@ def _assert_same_ndps(got, ref):
 
 def test_decode_capture_full_equals_jax(universal):
     cap, want, (jpkts, jndps), jstats = universal
-    rx = MimoReceiver()
+    rx = MimoReceiver(device="cpu")
     pkts, ndps = rx.decode_capture_full(cap)
     got = {(r.fmt, r.mcs): r for r in pkts if r.fcs_ok}
     assert set(got) == set(want)
@@ -83,12 +84,13 @@ def test_decode_captures_equal_decode_capture(ingest):
     cap, want = _dual(False)
     caps = [np.concatenate([np.zeros((2, 64 + 32 * k), np.complex64), cap],
                            axis=1) for k in range(5)]
-    rx = MimoReceiver(ingest=ingest)
+    rx = MimoReceiver(ingest=ingest, device="cpu")
     single = [rx.decode_capture(c) for c in caps[:2]]
     assert_same_packets_all(single[0], jmimo.MimoReceiver(
         ingest=ingest).decode_capture(caps[0]))
-    stream = MimoReceiver(ingest=ingest).decode_captures(caps)
-    full, ndps = MimoReceiver(ingest=ingest).decode_captures_full(caps)
+    stream = MimoReceiver(ingest=ingest, device="cpu").decode_captures(caps)
+    full, ndps = MimoReceiver(ingest=ingest,
+                              device="cpu").decode_captures_full(caps)
     assert len(stream) == len(full) == len(ndps) == 5
     for k in range(5):
         assert_same_packets_all(stream[k], single[k % 2])
@@ -103,7 +105,7 @@ def test_ingest_int8_scales_per_chain_as_jax():
     [2, 1, 1] scales, exactly."""
     cap, _ = _dual(False)
     cap[1] *= 3.0                         # unequal chains, unequal scales
-    t0s, cap_dev, npad = MimoReceiver(ingest="int8")._ingest(cap)
+    t0s, cap_dev, npad = MimoReceiver(ingest="int8", device="cpu")._ingest(cap)
     jt0s, jcap, jscale, jnpad = jmimo.MimoReceiver(ingest="int8")._ingest(
         cap)
     jscale = np.asarray(jscale)
@@ -120,7 +122,7 @@ def test_upload_equals_jax(ingest):
     with ONE peak over both, as JAX's fallback does."""
     cap, _ = _dual(False)
     cap[1] *= 3.0
-    got, npad = MimoReceiver(ingest=ingest)._upload(cap)
+    got, npad = MimoReceiver(ingest=ingest, device="cpu")._upload(cap)
     jcap, jscale, jnpad = jmimo.MimoReceiver(ingest=ingest)._upload(cap)
     assert npad == jnpad
     jcap = np.asarray(jcap)
@@ -130,10 +132,10 @@ def test_upload_equals_jax(ingest):
 
 
 def test_auto_ingest_switches_at_half_the_siso_length():
-    rx, siso = MimoReceiver(), SisoReceiver()
+    rx, siso = MimoReceiver(device="cpu"), SisoReceiver(device="cpu")
     assert rx._mode(1 << 19) == "f32" and rx._mode(1 << 20) == "int8"
     assert siso._mode(1 << 20) == "f32" and siso._mode(1 << 21) == "int8"
-    assert MimoReceiver(ingest="f32")._mode(1 << 22) == "f32"
+    assert MimoReceiver(ingest="f32", device="cpu")._mode(1 << 22) == "f32"
 
 
 def test_merge_triggers_equals_jax():
@@ -150,8 +152,8 @@ def test_merge_triggers_equals_jax():
 
 @pytest.mark.parametrize("fs", RATES, ids=["20MHz", "40MHz", "80MHz"])
 def test_plan_batch_and_plan_one_equal_jax_on_random_meta(fs):
-    port, ref = MimoReceiver(sample_rate_hz=fs), jmimo.MimoReceiver(
-        sample_rate_hz=fs)
+    port = MimoReceiver(sample_rate_hz=fs, device="cpu")
+    ref = jmimo.MimoReceiver(sample_rate_hz=fs)
     rng = np.random.default_rng(int(fs // 1e6) + 1)
     n, cap_len = 3000, 150000
     meta = _random_meta(rng, n, port.bw)
@@ -171,7 +173,7 @@ def test_plan_batch_and_plan_one_equal_jax_on_random_meta(fs):
 
 def test_plan_batch_equals_plan_one_on_the_universal_capture():
     cap, _ = _dual(False)
-    rx = MimoReceiver()
+    rx = MimoReceiver(device="cpu")
     t0s, cap_dev, npad = rx._ingest(cap)
     meta = rx._parse_sigs(cap_dev, npad, t0s)
     plans, ndps = rx._plan_batch(cap.shape[1], meta, len(t0s))
@@ -192,7 +194,7 @@ MIMO_MODS = [(Mod(F.HT, 12, BW.BW20, 2), 16), (Mod(F.VHT, 4, BW.BW20, 2), 16),
 
 @pytest.mark.parametrize("mod,n_sym", MIMO_MODS)
 def test_mimo_decoder_buffers_are_the_tables(mod, n_sym):
-    dec = MimoDataDecoder(mod, n_sym, "zf")
+    dec = MimoDataDecoder(port_mod(mod), n_sym, "zf")
     b = {k: v.numpy() for k, v in dec.named_buffers()}
     assert not any(True for _ in dec.parameters())
     for iss in range(2):
@@ -221,25 +223,26 @@ def test_mimo_decoder_buffers_are_the_tables(mod, n_sym):
 @pytest.mark.parametrize("mod", [Mod(F.L, 3), Mod(F.HT, 5),
                                  Mod(F.VHT, 7, BW.BW80, 1)])
 def test_mrc_decoder_geometry_equals_jax(mod):
-    dec, jdec = MrcDataDecoder(mod, 16), jmimo.MrcDataDecoder(mod, 16)
+    dec, jdec = MrcDataDecoder(port_mod(mod), 16), jmimo.MrcDataDecoder(mod,
+                                                                        16)
     assert (dec.data_offset(), dec.zlen(), dec.window_capacity()) == (
         jdec.data_offset(), jdec.zlen(), jdec.window_capacity())
 
 
 def test_decoders_are_cached_per_device_and_detector():
-    mod = Mod(F.VHT, 4, BW.BW20, 2)
-    assert get_mimo_decoder(mod, 16, "ml") is get_mimo_decoder(mod, 16, "ml",
-                                                               "cpu")
-    assert get_mimo_decoder(mod, 16, "zf").detector == "zf"
-    assert get_mrc_decoder(Mod(F.HT, 5), 16) is get_mrc_decoder(
-        Mod(F.HT, 5), 16, "cpu")
+    mod, mrc = port_mod(Mod(F.VHT, 4, BW.BW20, 2)), port_mod(Mod(F.HT, 5))
+    cpu = torch.device("cpu")
+    assert get_mimo_decoder(mod, 16, "ml", "cpu") is get_mimo_decoder(
+        mod, 16, "ml", cpu)
+    assert get_mimo_decoder(mod, 16, "zf", "cpu").detector == "zf"
+    assert get_mrc_decoder(mrc, 16, "cpu") is get_mrc_decoder(mrc, 16, cpu)
 
 
 def test_cpu_receiver_launches_no_kernel():
     before = (kv.LAUNCHES, kg.LAUNCHES, kg.SHARED_LAUNCHES,
               kg.MULTI_LAUNCHES)
     cap, want = _dual(False)
-    res = MimoReceiver().decode_capture(cap)
+    res = MimoReceiver(device="cpu").decode_capture(cap)
     assert sum(r.fcs_ok for r in res) == len(want)
     assert (kv.LAUNCHES, kg.LAUNCHES, kg.SHARED_LAUNCHES,
             kg.MULTI_LAUNCHES) == before
@@ -247,14 +250,15 @@ def test_cpu_receiver_launches_no_kernel():
 
 def test_options_are_checked():
     with pytest.raises(NotImplementedError, match="item 10"):
-        MimoReceiver(mu_gid=1)
+        MimoReceiver(mu_gid=1, device="cpu")
     with pytest.raises(NotImplementedError, match="device trigger"):
-        MimoReceiver(trigger="device")
+        MimoReceiver(trigger="device", device="cpu")
     with pytest.raises(ValueError):
-        MimoReceiver(detector="mmse")
+        MimoReceiver(detector="mmse", device="cpu")
     with pytest.raises(ValueError):
-        MimoDataDecoder(Mod(F.VHT, 4), 16)
+        MimoDataDecoder(port_mod(Mod(F.VHT, 4)), 16)
     with pytest.raises(ValueError):
-        MimoDataDecoder(Mod(F.VHT, 4, BW.BW20, 2), 16, detector="auto")
+        MimoDataDecoder(port_mod(Mod(F.VHT, 4, BW.BW20, 2)), 16,
+                        detector="auto")
     with pytest.raises(ValueError):
-        MimoReceiver().decode_capture(np.zeros(1000, np.complex64))
+        MimoReceiver(device="cpu").decode_capture(np.zeros(1000, np.complex64))

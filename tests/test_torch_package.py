@@ -1,12 +1,15 @@
 """The port's package as a whole: its constant tables equal the JAX
 package's numpy helpers element for element, importing it never loads jax
-and never builds a kernel, and the receive module's buffers are those
+or the JAX package and never builds a kernel, its entry points run on the
+card unless asked for the CPU, and the receive module's buffers are those
 tables.
 """
+import ast
 import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,7 +21,7 @@ from ieee80211_tpu.ops import demod as jdemod
 from ieee80211_tpu.ops import sync as jsync
 from ieee80211_tpu.specs import BW, F, Mod, tables
 from ieee80211_tpu_torch.models import RxPipeline, tables_from_numpy
-import torch_parity  # noqa: F401  (caps torch's threads)
+from torch_parity import port_mod
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = [(Mod(F.VHT, 7), 18), (Mod(F.L, 7), 6),
@@ -28,7 +31,7 @@ CONFIGS = [(Mod(F.VHT, 7), 18), (Mod(F.L, 7), 6),
 @pytest.mark.parametrize("mod,n_sym", CONFIGS)
 def test_tables_equal_jax_helpers(mod, n_sym):
     q = tables.NFFT[mod.bw] // 64
-    t = tables_from_numpy(mod, n_sym)
+    t = tables_from_numpy(port_mod(mod), n_sym)
     w0, w1 = jcoding._radix_tables(4)
     np.testing.assert_array_equal(t["vit_w0"], w0)
     np.testing.assert_array_equal(t["vit_w1"], w1)
@@ -55,8 +58,8 @@ def test_tables_equal_jax_helpers(mod, n_sym):
 
 
 def test_pipeline_buffers_are_the_tables():
-    mod, n_sym = CONFIGS[0]
-    pipe = RxPipeline(mod, n_sym, 582)
+    mod, n_sym = port_mod(CONFIGS[0][0]), CONFIGS[0][1]
+    pipe = RxPipeline(mod, n_sym, 582, device="cpu")
     bufs = dict(pipe.named_buffers())
     want = tables_from_numpy(mod, n_sym)
     assert set(bufs) == {f"step.{k}" for k in want}
@@ -69,12 +72,22 @@ def test_pipeline_buffers_are_the_tables():
 
 @pytest.mark.parametrize("mod,n_sym", CONFIGS)
 def test_window_len_matches_jax(mod, n_sym):
-    assert (RxPipeline(mod, n_sym, 100).window_len()
+    assert (RxPipeline(port_mod(mod), n_sym, 100, device="cpu").window_len()
             == JaxRxPipeline(mod, n_sym, 100).window_len())
 
 
 _PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, importlib.abc, json, pkgutil, sys
+
+
+class NoJaxPackage(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "ieee80211_tpu" or name.startswith("ieee80211_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, NoJaxPackage())
 import ieee80211_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ieee80211_tpu_torch.__path__,
                                                "ieee80211_tpu_torch.")]
@@ -85,14 +98,18 @@ from ieee80211_tpu_torch.ops.cuda import build
 print(json.dumps({"modules": names,
                   "jax": sorted(m for m in sys.modules
                                 if m == "jax" or m.startswith("jax.")),
+                  "jax_package": sorted(
+                      m for m in sys.modules if m == "ieee80211_tpu"
+                      or m.startswith("ieee80211_tpu.")),
                   "lib_built": build._lib is not None}))
 """
 
 
 @pytest.fixture(scope="module")
 def import_probe(tmp_path_factory):
-    """Import every module of the port in a fresh interpreter whose CUDA
-    toolkit path leads nowhere."""
+    """Import every module of the port, and chip_smoke, in a fresh
+    interpreter whose CUDA toolkit path leads nowhere and in which any
+    import of the JAX package raises."""
     env = dict(os.environ, CUDA_HOME=str(tmp_path_factory.mktemp("nocuda")))
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -109,9 +126,35 @@ def test_import_never_loads_jax(import_probe):
             "ieee80211_tpu_torch.rx.receiver",
             "ieee80211_tpu_torch.rx.mimo",
             "ieee80211_tpu_torch.mu.sounding",
-            "ieee80211_tpu_torch.utils.metrics"} <= set(
+            "ieee80211_tpu_torch.utils.metrics",
+            "ieee80211_tpu_torch.specs.tables",
+            "ieee80211_tpu_torch.mac.frames",
+            "ieee80211_tpu_torch.native.lib",
+            "ieee80211_tpu_torch.tx.golden"} <= set(
                 import_probe["modules"])
     assert import_probe["jax"] == []
+
+
+def test_import_never_loads_the_jax_package(import_probe):
+    assert import_probe["jax_package"] == []
+
+
+def _imported_roots(path: Path):
+    """The top-level package of every import statement in a source file."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(
+    (Path(REPO) / "ieee80211_tpu_torch").rglob("*.py")) + [
+        Path(REPO) / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "ieee80211_tpu"}, roots
 
 
 def test_import_builds_no_kernel(import_probe):
@@ -155,9 +198,10 @@ def test_decoder_buffers_are_the_tables(mod, n_sym):
     from ieee80211_tpu.specs import interleaver as ilv
     from ieee80211_tpu_torch.rx.receiver import (SisoDataDecoder,
                                                  get_data_decoder)
-    dec = SisoDataDecoder(mod, n_sym)
+    pmod = port_mod(mod)
+    dec = SisoDataDecoder(pmod, n_sym)
     bufs = {k: v.numpy() for k, v in dec.named_buffers()}
-    want = tables_from_numpy(mod, n_sym)
+    want = tables_from_numpy(pmod, n_sym)
     assert {"dft_re", "pilot_ref", "data_idx", "rx_perm", "vit_w0",
             "prbs", "seed_inv"} <= set(bufs)
     for k, arr in want.items():
@@ -173,5 +217,41 @@ def test_decoder_buffers_are_the_tables(mod, n_sym):
                                       jrx._crc8_matrix(n_pre)[0])
         np.testing.assert_array_equal(
             bufs["sigb_perm"], ilv.rx_perm(Mod(F.VHT, 0, mod.bw, 1)))
-    assert get_data_decoder(mod, n_sym) is get_data_decoder(mod, n_sym,
-                                                            "cpu")
+    assert get_data_decoder(pmod, n_sym, "cpu") is get_data_decoder(
+        pmod, n_sym, torch.device("cpu"))
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_without_a_device_need_a_card(monkeypatch):
+    """With no device given, every entry point asks for the card, and
+    raises where there is none: nothing falls back to the CPU."""
+    from ieee80211_tpu_torch.rx import (MimoReceiver, SisoReceiver,
+                                        get_data_decoder, get_mimo_decoder,
+                                        get_mrc_decoder)
+    _no_card(monkeypatch)
+    mod = port_mod(Mod(F.VHT, 7))
+    mod2 = port_mod(Mod(F.VHT, 4, BW.BW20, 2))
+    for build in (lambda: RxPipeline(mod, 18, 582), SisoReceiver,
+                  MimoReceiver, lambda: get_data_decoder(mod, 16),
+                  lambda: get_mimo_decoder(mod2, 16),
+                  lambda: get_mrc_decoder(mod, 16),
+                  lambda: RxPipeline(mod, 18, 582, device="cuda")):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build()
+
+
+def test_entry_points_run_on_the_cpu_when_asked(monkeypatch):
+    from ieee80211_tpu_torch.rx import (MimoReceiver, SisoReceiver,
+                                        get_data_decoder)
+    _no_card(monkeypatch)
+    cpu = torch.device("cpu")
+    mod = port_mod(Mod(F.VHT, 7))
+    pipe = RxPipeline(mod, 18, 582, device="cpu")
+    assert {b.device for b in pipe.buffers()} == {cpu}
+    assert SisoReceiver(device="cpu").device == cpu
+    assert MimoReceiver(device="cpu").device == cpu
+    assert MimoReceiver(device=cpu).sig.band.device == cpu
+    assert get_data_decoder(mod, 16, "cpu").vit_w0.device == cpu

@@ -24,7 +24,7 @@ from ieee80211_tpu.specs.modulation import ppdu_params_aggregate
 from ieee80211_tpu.tx import finalize, gen_ampdu
 from ieee80211_tpu_torch.models import RxPipeline
 from ieee80211_tpu_torch.utils import c2r
-from torch_parity import mpdu_decoded
+from torch_parity import mpdu_decoded, port_mod
 
 CFO_TOL = 1e-6   # rad/sample: float32 rounding of the angle sums
 SNR_TOL = 1e-3   # dB (noiseless packets sit at the 60 dB clamp)
@@ -71,7 +71,8 @@ def test_rx_step_matches_jax(make):
     jpipe, x, t0, mpdu = make()
     ref = {k: np.asarray(v) for k, v in
            jpipe.step(jnp.asarray(x), jnp.asarray(t0)).items()}
-    pipe = RxPipeline(jpipe.mod, jpipe.n_sym, jpipe.psdu_len)
+    pipe = RxPipeline(port_mod(jpipe.mod), jpipe.n_sym, jpipe.psdu_len,
+                      device="cpu")
     assert pipe.window_len() == jpipe.window_len() == x.shape[1]
     with torch.inference_mode():
         out = pipe.step(torch.from_numpy(x), torch.from_numpy(t0))
@@ -92,9 +93,9 @@ def test_chip_smoke_input_is_bench_input():
     """chip_smoke.py builds bench.py's headline input without JAX."""
     jpipe, x, t0, mpdu = bench.build_batch(3)
     cell = dict(chip_smoke.HEADLINE, batch=3)
-    pipe, x_s, t0_s, mpdu_s = chip_smoke.make_batch(**cell)
-    assert (pipe.mod, pipe.n_sym, pipe.psdu_len) == (
-        jpipe.mod, jpipe.n_sym, jpipe.psdu_len)
+    pipe, x_s, t0_s, mpdu_s = chip_smoke.make_batch(**cell, device="cpu")
+    assert pipe.mod == port_mod(jpipe.mod)
+    assert (pipe.n_sym, pipe.psdu_len) == (jpipe.n_sym, jpipe.psdu_len)
     np.testing.assert_array_equal(x_s, x)
     np.testing.assert_array_equal(t0_s, t0)
     assert mpdu_s == mpdu

@@ -60,7 +60,7 @@ def test_known_mpdu_decodes():
                    multiplier=0.2, cfo_hz=-7000.0, gap=True,
                    gap_len=1200)[0]
     cap = add_noise(cap, 30.0, seed=1)
-    res = SisoReceiver().decode_capture(cap)
+    res = SisoReceiver(device="cpu").decode_capture(cap)
     assert len(res) == 1
     r = res[0]
     assert r.fmt == F.L and r.mcs == 0 and r.fcs_ok and r.sigb_ok is None
@@ -79,7 +79,7 @@ def test_loopback_equals_jax(fmt, mcs, cfo):
           else gen_mpdu(mpdu, Mod(fmt, mcs)))
     cap = add_noise(finalize(tx.waveform, multiplier=0.2, cfo_hz=cfo,
                              gap=True, gap_len=1200)[0], 30.0, seed=mcs)
-    rx = SisoReceiver()
+    rx = SisoReceiver(device="cpu")
     res = rx.decode_capture(cap)
     assert len(res) == 1 and res[0].fmt == fmt and res[0].mcs == mcs
     assert res[0].fcs_ok and res[0].mpdus[0] == mpdu
@@ -104,7 +104,7 @@ def mixed():
 @pytest.mark.parametrize("ingest", ["f32", "int8"])
 def test_decode_capture_equals_jax(mixed, ingest):
     caps, ref = mixed
-    rx = SisoReceiver(ingest=ingest)
+    rx = SisoReceiver(ingest=ingest, device="cpu")
     for cap, want in zip(caps, ref[ingest][0]):
         got = rx.decode_capture(cap)
         assert all(r.fcs_ok for r in got) and len(got) == len(want)
@@ -120,7 +120,7 @@ def test_decode_captures_equals_jax(mixed, ingest, trigger):
     device trigger may place a window a sample or two off the host's, so
     CFO and SNR are held to the stated tolerances there too."""
     caps, ref = mixed
-    rx = SisoReceiver(ingest=ingest, trigger=trigger)
+    rx = SisoReceiver(ingest=ingest, trigger=trigger, device="cpu")
     stream = rx.decode_captures(caps * 3)
     assert len(stream) == 6
     for k, got in enumerate(stream):
@@ -142,7 +142,7 @@ def test_wideband_80mhz_equals_jax():
                  multiplier=0.18, cfo_hz=28000.0, gap=True,
                  gap_len=1024)[0] for m, mod in zip(mpdus, mods)]),
         30.0, seed=80)
-    res = SisoReceiver(sample_rate_hz=80e6).decode_capture(cap)
+    res = SisoReceiver(sample_rate_hz=80e6, device="cpu").decode_capture(cap)
     assert [(r.fmt, r.mcs, r.fcs_ok) for r in res] == [(F.VHT, 9, True),
                                                        (F.VHT, 4, True)]
     assert [r.mpdus[0] for r in res] == mpdus
@@ -156,14 +156,15 @@ def test_ndp_surfaces_as_in_jax():
     h = rng.standard_normal(2) + 1j * rng.standard_normal(2)
     cap = (h @ finalize(ndp.waveform, multiplier=0.3, cfo_hz=4000.0,
                         gap=True, gap_len=600)).astype(np.complex64)
-    pkts, ndps = SisoReceiver().decode_capture_full(cap)
+    pkts, ndps = SisoReceiver(device="cpu").decode_capture_full(cap)
     jpkts, jndps = JaxSisoReceiver().decode_capture_full(cap)
     assert pkts == [] == jpkts and len(ndps) == 1 == len(jndps)
     assert set(dataclasses.asdict(ndps[0])) == set(dataclasses.asdict(
         jndps[0]))
     np.testing.assert_allclose(ndps[0].ltf_iq, jndps[0].ltf_iq, atol=1e-5)
     assert abs(ndps[0].cfo_rad - jndps[0].cfo_rad) <= 1e-6
-    (stream,), (sndps,) = SisoReceiver().decode_captures_full([cap])
+    (stream,), (sndps,) = SisoReceiver(
+        device="cpu").decode_captures_full([cap])
     assert stream == [] and len(sndps) == 1
     np.testing.assert_array_equal(sndps[0].ltf_iq, ndps[0].ltf_iq)
 
@@ -171,17 +172,17 @@ def test_ndp_surfaces_as_in_jax():
 def test_cpu_receiver_launches_no_kernel():
     before = (kv.LAUNCHES, kg.LAUNCHES, kg.SHARED_LAUNCHES)
     cap, mpdus = mixed_capture(seed=5, n=2)
-    res = SisoReceiver().decode_capture(cap)
+    res = SisoReceiver(device="cpu").decode_capture(cap)
     assert [r.mpdus[0] for r in res] == mpdus
     assert (kv.LAUNCHES, kg.LAUNCHES, kg.SHARED_LAUNCHES) == before
 
 
 def test_options_are_checked():
     with pytest.raises(NotImplementedError, match="item 10"):
-        SisoReceiver(mu_gid=1)
+        SisoReceiver(mu_gid=1, device="cpu")
     with pytest.raises(ValueError):
-        SisoReceiver(sample_rate_hz=60e6)
+        SisoReceiver(sample_rate_hz=60e6, device="cpu")
     with pytest.raises(ValueError):
-        SisoReceiver(ingest="int4")
+        SisoReceiver(ingest="int4", device="cpu")
     with pytest.raises(ValueError):
-        SisoReceiver(trigger="radio")
+        SisoReceiver(trigger="radio", device="cpu")

@@ -75,8 +75,8 @@ def _assert_plans_equal(got, want):
 
 @pytest.mark.parametrize("fs", RATES, ids=["20MHz", "40MHz", "80MHz"])
 def test_plan_batch_and_plan_one_equal_jax_on_random_meta(fs):
-    port, ref = rx.SisoReceiver(sample_rate_hz=fs), jrx.SisoReceiver(
-        sample_rate_hz=fs)
+    port = rx.SisoReceiver(sample_rate_hz=fs, device="cpu")
+    ref = jrx.SisoReceiver(sample_rate_hz=fs)
     rng = np.random.default_rng(int(fs // 1e6))
     n, cap_len = 3000, 150000
     meta = _random_meta(rng, n, port.bw)
@@ -98,7 +98,7 @@ def test_plan_batch_and_plan_one_equal_jax_on_random_meta(fs):
 
 def test_plan_batch_equals_jax_on_a_real_capture():
     cap, _ = mixed_capture(seed=31, n=6)
-    port = rx.SisoReceiver()
+    port = rx.SisoReceiver(device="cpu")
     t0s, cap_dev, npad = port._ingest(cap)
     meta = port._parse_sigs(cap_dev, npad, t0s)
     got, _ = port._plan_batch(len(cap), meta, len(t0s))

@@ -3,6 +3,8 @@
 Not collected by pytest. Inputs are made with numpy and passed to both
 packages as numpy arrays; JAX stays on the CPU (tests/conftest.py).
 """
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -23,6 +25,15 @@ def encode_batch(rng, batch: int, n_bits: int, cr, sigma: float = 0.2):
     punct = np.stack([bcc(row, cr) for row in bits])
     llr = (punct * 2.0 - 1.0) + rng.normal(0, sigma, punct.shape)
     return bits, llr.astype(np.float32)
+
+
+def port_mod(mod):
+    """The port's Mod built from the JAX package's, field for field. The two
+    packages' Mods are separate frozen dataclasses (a JAX Mod never equals a
+    port Mod), so the port's code gets its own."""
+    from ieee80211_tpu_torch import specs
+    return specs.Mod(**{f.name: getattr(mod, f.name)
+                        for f in dataclasses.fields(mod)})
 
 
 def radix_tensors(k: int, device="cpu"):
