@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's receive paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's receive and transmit paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -52,7 +53,30 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      ~4.03M-sample captures per chain of 1440 packets, VHT MCS7 SISO and VHT
      MCS4 2x2, int8 ingest) with the "auto", "zf" and "ml" detectors:
      1440/1440 per capture, launches of every kernel in every capture,
-     samples/s and packets/s (best of 3), host waits and implicit syncs.
+     samples/s and packets/s (best of 3), host waits and implicit syncs;
+ 18. `TxPipeline` (bench.py:128-170): L MCS0 with the 30-byte UDP MPDU and
+     VHT MCS7 with 2 streams, batch 1024 each, held to the golden TX within
+     TX_TOL and timed (samples/s);
+ 19. `MuTxPipeline` (bench.py:220-272): VHT MCS4 + MCS2 users with 500 B /
+     300 B payloads and a random unitary Q (seed 2), batch 256, held to
+     `gen_ampdu_mu` and timed;
+ 20. the MU-MIMO closed loop on the card: NDP -> `sta_capture_ndp` ->
+     feedback -> ZF Q -> `MuTxPipeline` -> `sta_decode_mu` for 2 users
+     (tests/test_jax_tx.py:77-119) and 4 users (tests/test_mu_mimo.py:83-120):
+     every station recovers its exact MPDU;
+ 21. `MuStaDecoder` at batch 256 (bench.py:281-342) behind its FCS gate,
+     timed;
+ 22. the MU stream (bench.py:508-556): four captures of 60 x (5 MU + 5 SU)
+     packets through `SisoReceiver(mu_pos=0, mu_gid=2).decode_captures`:
+     300/300 MU and 300/300 SU per capture, 0 implicit syncs, launches per
+     capture, samples/s (best of 3);
+ 23. `MimoReceiver(mu_pos=0, mu_gid=2)` on the dual-chain MU captures of
+     tests/test_mu_stream.py (20 MHz with 2x2 SU traffic, 40 MHz), against
+     the port's CPU run;
+ 24. `PhyService`: the sounding loop of tests/test_api.py:67-103 on the card,
+     its records against the port's CPU run.
+The MU shapes (a SIG-B group of 26 bits, the MU stream's DATA bucket, and
+the MU window lengths of both capture-slice modes) join phases 3, 9 and 13.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package
 (the GPU machine has no JAX): only the port, torch and numpy.
@@ -67,8 +91,13 @@ import numpy as np
 import torch
 
 from ieee80211_tpu_torch import native
+from ieee80211_tpu_torch.api import PhyService
+from ieee80211_tpu_torch.api import descriptors as wire
 from ieee80211_tpu_torch.mac import (MacConfig, aggregate_vht, build_udp_mpdu,
                                      deaggregate_vht)
+from ieee80211_tpu_torch.mu import (map_q_to_grid, ndp_ltf_channel,
+                                    vht_channel_feedback, zf_q)
+from ieee80211_tpu_torch.mu import sounding
 from ieee80211_tpu_torch.models import RxPipeline
 from ieee80211_tpu_torch.ops import coding, sync
 from ieee80211_tpu_torch.ops.cuda import build
@@ -82,7 +111,8 @@ from ieee80211_tpu_torch.rx import (MimoDataDecoder, MimoReceiver,
 from ieee80211_tpu_torch.specs import BW, CR, F, Mod
 from ieee80211_tpu_torch.specs.modulation import (ppdu_params_aggregate,
                                                   ppdu_params_nonaggregate)
-from ieee80211_tpu_torch.tx import finalize, gen_ampdu, gen_mpdu
+from ieee80211_tpu_torch.tx import (MuTxPipeline, TxPipeline, finalize,
+                                    gen_ampdu, gen_ampdu_mu, gen_mpdu)
 from ieee80211_tpu_torch.tx.golden import bcc
 from ieee80211_tpu_torch.utils import c2r
 
@@ -113,6 +143,12 @@ N_API = 20                     # bench.py's decode_capture capture
 N_COPY, N_STREAM = 50, 6       # bench.py's stream: 6 x 50 copies of it
 N_MIMO_SEG, N_MIMO_REP = 12, 120   # bench.py's dual-chain stream: 6 x 120
                                    # copies of a 12-packet segment
+N_MU_SEG, N_MU_REP, N_MU_CAP = 10, 60, 4   # bench.py's MU stream
+MU_GID = 2
+# a TX waveform on the card against the golden complex128 TX: cuFFT's
+# float32 rounding (the CPU run is held to 2e-6 in tests/test_torch_tx.py)
+TX_TOL = 1e-5
+NDP_TOL = 1e-4     # a channel report's samples, card against CPU run
 
 
 def check(ok: bool, what: str) -> None:
@@ -412,10 +448,9 @@ def mimo_stream_captures(reps: int = N_MIMO_REP):
             N_MIMO_SEG * reps)
 
 
-def stream_pass(srx, caps, want: int, what: str):
-    """One pass of `srx.decode_captures(caps)` under the sync debug mode:
-    every capture must return `want` packets with a good FCS. Returns (host
-    waits per capture, implicit syncs)."""
+def counted_pass(srx, caps):
+    """One pass of `srx.decode_captures(caps)` under the sync debug mode.
+    Returns (results, host waits per capture, implicit syncs)."""
     waits = srx.n_waits
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -429,10 +464,17 @@ def stream_pass(srx, caps, want: int, what: str):
     # ops it flags
     implicit = sum("synchroniz" in str(w.message)
                    and "prototype" not in str(w.message) for w in caught)
+    return stream, (srx.n_waits - waits) / len(caps), implicit
+
+
+def stream_pass(srx, caps, want: int, what: str):
+    """counted_pass, and every capture must return `want` packets with a
+    good FCS. Returns (host waits per capture, implicit syncs)."""
+    stream, waits, implicit = counted_pass(srx, caps)
     for res in stream:
         n_ok = sum(r.fcs_ok for r in res)
         check(n_ok == want == len(res), f"{what}: {n_ok}/{want} packets")
-    return (srx.n_waits - waits) / len(caps), implicit
+    return waits, implicit
 
 
 def best_of_3(srx, caps):
@@ -445,6 +487,219 @@ def best_of_3(srx, caps):
         torch.cuda.synchronize()
         dts.append(time.perf_counter() - t)
     return min(dts), dts, sum(len(r) for r in stream)
+
+
+CFG_QOS = MacConfig(subtype=8, seq=2704, **MAC)
+
+
+def tx_cases():
+    """bench.py's TX row (L MCS0, the 30-byte UDP MPDU) and VHT MCS7 with
+    2 streams on the same MPDU in an A-MPDU: [(name, mod, pp, input bytes,
+    golden waveform)]."""
+    mpdu = build_udp_mpdu(b"123456789012345678901234567890",
+                          MacConfig(seq=2704, **MAC))
+    l0 = Mod(F.L, 0)
+    ampdu = aggregate_vht([build_udp_mpdu(b"123456789012345678901234567890",
+                                          CFG_QOS)])
+    v7 = Mod(F.VHT, 7, BW.BW20, 2)
+    return [("L MCS0", l0, ppdu_params_nonaggregate(l0, len(mpdu)), mpdu,
+             gen_mpdu(mpdu, l0).waveform),
+            ("VHT MCS7 2x2", v7, ppdu_params_aggregate(v7, len(ampdu)),
+             ampdu, gen_ampdu(ampdu, v7).waveform)]
+
+
+def rows_on(data: bytes, batch: int, dev) -> torch.Tensor:
+    return torch.from_numpy(np.tile(np.frombuffer(data, np.uint8),
+                                    (batch, 1))).to(dev)
+
+
+def max_err(out: torch.Tensor, want: np.ndarray) -> float:
+    """max |out - want| over every row of a [B, nSS, N, 2] waveform."""
+    got = out.cpu().numpy()
+    return float(np.abs(got[..., 0] + 1j * got[..., 1] - want[None]).max())
+
+
+def mu_sta_window():
+    """bench.py's MU-STA input (bench.py:281-320): a 2-user VHT MCS4 PPDU
+    (500 B payloads, seed 4, identity Q, group 2) as station 0 hears it,
+    triggered 8 samples early. Returns (mod, n_sym, psdu_len, window [W]
+    complex64, mpdu)."""
+    rng = np.random.default_rng(4)
+    mpdus = [build_udp_mpdu(bytes(rng.integers(0, 256, 500, dtype=np.uint8)),
+                            CFG_QOS) for _ in range(2)]
+    amps = [aggregate_vht([m]) for m in mpdus]
+    mods = [Mod(F.VHT, 4, BW.BW20, 1)] * 2
+    qi = np.tile(np.eye(2, dtype=np.complex64)[None], (64, 1, 1))
+    wave = finalize(gen_ampdu_mu(amps, mods, bfq=qi, group_id=MU_GID).waveform,
+                    multiplier=0.2, cfo_hz=-9000.0, gap=True, gap_len=64)
+    pps = [ppdu_params_aggregate(m, len(a)) for m, a in zip(mods, amps)]
+    n_sym = max(p.n_sym for p in pps)
+    w = 192 + 448 + 160 + 80 + 80 * n_sym + 80
+    x = np.zeros(w, np.complex64)
+    seg = wave[0, 64 - 8:]
+    x[:min(w, len(seg))] = seg[:min(w, len(seg))]
+    return mods[0], n_sym, pps[0].psdu_len, x, mpdus[0]
+
+
+def mu_stream_captures():
+    """bench.py's MU stream (bench.py:514-545): a segment of 10 packets
+    (seed 21), VHT MCS7 SU alternating with 2-user MU PPDUs (VHT MCS4 +
+    MCS2, 400 B / 300 B payloads, identity Q, group 2; station 0 hears chain
+    0), CFO uniform in +-30 kHz, 800 zeros before each; four captures of 60
+    copies with 64 + 32k leading zeros. Returns (captures, the MU MPDUs and
+    the SU MPDUs of one capture, in order)."""
+    rng = np.random.default_rng(21)
+    qi = np.tile(np.eye(2, dtype=np.complex64)[None], (64, 1, 1))
+    parts, mu_mpdus, su_mpdus = [], [], []
+    for i in range(N_MU_SEG):
+        m0 = build_udp_mpdu(bytes(rng.integers(0, 256, 400, dtype=np.uint8)),
+                            CFG_QOS)
+        m1 = build_udp_mpdu(bytes(rng.integers(0, 256, 300, dtype=np.uint8)),
+                            CFG_QOS)
+        if i % 2:
+            tx = gen_ampdu_mu([aggregate_vht([m0]), aggregate_vht([m1])],
+                              [Mod(F.VHT, 4, BW.BW20, 1),
+                               Mod(F.VHT, 2, BW.BW20, 1)],
+                              bfq=qi, group_id=MU_GID)
+            wv = finalize(tx.waveform, multiplier=0.2, cfo_hz=float(
+                rng.uniform(-3e4, 3e4)), gap=False)[0]
+            mu_mpdus.append(m0)
+        else:
+            wv = finalize(gen_ampdu(aggregate_vht([m0]),
+                                    Mod(F.VHT, 7)).waveform, multiplier=0.2,
+                          cfo_hz=float(rng.uniform(-3e4, 3e4)), gap=False)[0]
+            su_mpdus.append(m0)
+        parts.append(np.zeros(800, np.complex64))
+        parts.append(wv.astype(np.complex64))
+    big = np.concatenate(parts * N_MU_REP)
+    caps = [np.concatenate([np.zeros(64 + 32 * k, np.complex64), big])
+            for k in range(N_MU_CAP)]
+    return caps, mu_mpdus * N_MU_REP, su_mpdus * N_MU_REP
+
+
+def mu_stream_shapes():
+    """The MU stream's kernel shapes: its MU DATA decode group (mod,
+    bucket, padded rows) and the window lengths of its MU SIG-B and DATA
+    decodes."""
+    a0 = aggregate_vht([build_udp_mpdu(bytes(400), CFG_QOS)])
+    a1 = aggregate_vht([build_udp_mpdu(bytes(300), CFG_QOS)])
+    mod = Mod(F.VHT, 4, BW.BW20, 1)
+    n_sym = max(ppdu_params_aggregate(mod, len(a0)).n_sym,
+                ppdu_params_aggregate(Mod(F.VHT, 2, BW.BW20, 1),
+                                      len(a1)).n_sym)
+    bucket = receiver._bucket(n_sym)
+    rows = receiver.group_pad(N_MU_REP * N_MU_SEG // 2)
+    sigb_len = 272 + 448 + 80 * 2 + 160
+    data_len = sounding.MuStaDataDecoder(mod, bucket, 0, 2).zlen()
+    return mod, bucket, rows, sigb_len, data_len
+
+
+def mu_dual_chain_captures():
+    """tests/test_mu_stream.py's dual-chain MU captures, at 30 dB: a 2-user
+    MU PPDU whose stream 0 reaches both RX antennas (the interferer's
+    nulled), then at 20 MHz a 2x2 VHT MCS3 SU A-MPDU. Returns [(fs,
+    capture [2, N], MU MPDU, SU MPDUs)]."""
+    out = []
+    for q in (1, 2):
+        bw = (BW.BW20, BW.BW40)[q - 1]
+        m0, m1 = (build_udp_mpdu(p, CFG_QOS) for p in (
+            (b"dual chain mu user0 payload xyz",
+             b"dual chain mu user1 payload abc") if q == 1 else
+            (b"wideband dual mu user0 payload",
+             b"wideband dual mu user1 payload")))
+        qi = np.tile(np.eye(2, dtype=np.complex64)[None], (64 * q, 1, 1))
+        tx = gen_ampdu_mu([aggregate_vht([m0]), aggregate_vht([m1])],
+                          [Mod(F.VHT, 4 if q == 1 else 5, bw, 1),
+                           Mod(F.VHT, 2, bw, 1)], bfq=qi, group_id=MU_GID)
+        wave = finalize(tx.waveform, multiplier=0.2,
+                        cfo_hz=-7000.0 if q == 1 else 15000.0, gap=False)
+        g = np.array([0.9 - 0.2j, 0.6 + 0.7j])
+        z = np.zeros((2, 900 * q), np.complex64)
+        parts, su = [z, g[:, None] * wave[0], z], []
+        if q == 1:
+            m_su = build_udp_mpdu(b"dual chain su 2x2 payload qrstu", CFG_QOS)
+            w_su = finalize(gen_ampdu(aggregate_vht([m_su]),
+                                      Mod(F.VHT, 3, BW.BW20, 2)).waveform,
+                            multiplier=0.2, cfo_hz=9000.0, gap=False)
+            h22 = np.array([[1.0 + 0.1j, 0.3 - 0.4j], [-0.2 + 0.5j, 0.8]])
+            parts += [h22 @ w_su, z]
+            su = [m_su]
+        out.append((20e6 * q, add_noise(np.concatenate(parts, axis=1), 30.0,
+                                         seed=100 + q), m0, su))
+    return out
+
+
+def sta_noise(y, seed: int):
+    """tests/test_mu_mimo.py's `_apply` noise: 1e-4 per axis."""
+    rng = np.random.default_rng(seed)
+    return (y + (rng.standard_normal(y.shape)
+                 + 1j * rng.standard_normal(y.shape)) * 1e-4).astype(
+                     np.complex64)
+
+
+def closed_loop(n_user: int, mcss, dev):
+    """NDP sounding through a well-conditioned n_user x n_user channel
+    (seed 42 for 2 users, 77 for 4) -> sta_capture_ndp -> feedback -> ZF
+    Q -> MuTxPipeline -> sta_decode_mu at every station, on `dev`. Returns
+    the stations' results and their MPDUs."""
+    rng = np.random.default_rng(42 if n_user == 2 else 77)
+    h = (rng.standard_normal((n_user, n_user))
+         + 1j * rng.standard_normal((n_user, n_user)))
+    h += (2.0 if n_user == 2 else 2.5) * np.eye(n_user)
+    ndp = gen_ampdu(b"", Mod(F.VHT, 0, BW.BW20, n_user))
+    ncap = finalize(ndp.waveform, multiplier=0.3, cfo_hz=4000.0, gap=True,
+                    gap_len=1200)
+    v_users = []
+    for u in range(n_user):
+        nc = sounding.sta_capture_ndp(sta_noise(h[u] @ ncap, u),
+                                      n_sts=n_user, device=dev)
+        check(nc is not None, f"{n_user}-user loop: station {u} NDP")
+        v_users.append(vht_channel_feedback(
+            ndp_ltf_channel(nc.ltf_iq, n_sts=n_user), BW.BW20,
+            n_sts=n_user, n_rx=1))
+    q = map_q_to_grid(zf_q(v_users))
+    mpdus = [build_udp_mpdu(f"packet for STA {u} {'x' * (10 + 7 * u)}"
+                            .encode(), CFG_QOS) for u in range(n_user)]
+    ampdus = [aggregate_vht([m]) for m in mpdus]
+    tx = MuTxPipeline([Mod(F.VHT, m, BW.BW20, 1) for m in mcss],
+                      [len(a) for a in ampdus], group_id=5, device=dev)
+    out = tx.step([rows_on(a, 1, dev) for a in ampdus],
+                  torch.from_numpy(c2r(q.astype(np.complex64))).to(dev))
+    wave = out[0].cpu().numpy()
+    cap = finalize(wave[..., 0] + 1j * wave[..., 1], multiplier=0.3,
+                   cfo_hz=-3000.0, gap=True, gap_len=1200)
+    res = [sounding.sta_decode_mu(sta_noise(h[u] @ cap, 20 + u), mupos=u,
+                                  device=dev) for u in range(n_user)]
+    return res, mpdus
+
+
+def sounding_loop(device):
+    """tests/test_api.py's sounding loop over the wire API, the stations'
+    receivers on `device`: an NDP, each station's channel report, the AP's
+    ZF Q as a BFQ, a 2-user MU request. Returns (the stations' records of
+    the NDP, of the MU PPDU, and the MPDUs)."""
+    rng = np.random.default_rng(4)
+    h = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+    h += 2.0 * np.eye(2)
+    ap = PhyService(mugid=0, device=device)
+    stas = [PhyService(mupos=u, mugid=MU_GID, device=device)
+            for u in range(2)]
+    ndp_wave = ap.handle_request(wire.pack_ndp())
+    ndp_recs = [sta.rx_capture((h[u] @ ndp_wave).astype(np.complex64))
+                for u, sta in enumerate(stas)]
+    ltfs = [wire.unpack_rx_record(r[0]).ltf_iq for r in ndp_recs]
+    q = map_q_to_grid(zf_q([vht_channel_feedback(ndp_ltf_channel(x),
+                                                 BW.BW20, 2, 1)
+                            for x in ltfs]))
+    ap.handle_request(wire.pack_bfq(q.astype(np.complex64)))
+    m = [build_udp_mpdu(b"1234567 packet for station 000", CFG_QOS),
+         build_udp_mpdu(b"7654321 packet for station 111", CFG_QOS)]
+    mu_wave = ap.handle_request(wire.pack_mu_data(
+        aggregate_vht([m[0]]), Mod(F.VHT, 0), aggregate_vht([m[1]]),
+        Mod(F.VHT, 0), MU_GID))
+    mu_recs = [sta.rx_capture((h[u] @ mu_wave).astype(np.complex64))
+               for u, sta in enumerate(stas)]
+    return ndp_recs, mu_recs, m
 
 
 def main() -> int:
@@ -467,6 +722,7 @@ def main() -> int:
 
     w0, w1 = (torch.from_numpy(a).to(dev)
               for a in coding._radix_tables(coding.RADIX))
+    mu_mod, mu_bucket, mu_rows, mu_sigb_len, mu_data_len = mu_stream_shapes()
 
     # -- 3. Viterbi kernel vs plain ------------------------------------------
     vit_err = 0
@@ -491,7 +747,11 @@ def main() -> int:
             # 40 MHz
             ("mimo_vht4", 768, 4992, CR.CR34, 13),
             ("lanes_vht9_80", 8, 24960, CR.CR56, 14),
-            ("mimo_ht15_40", 4, 17280, CR.CR56, 15)]:
+            ("mimo_ht15_40", 4, 17280, CR.CR56, 15),
+            # the MU lanes': a SIG-B group of the MU stream (its 300 MU
+            # windows padded) and its DATA bucket (VHT MCS4)
+            ("mu_sigb26", mu_rows, 26, CR.CR12, 16),
+            ("mu_data", mu_rows, mu_bucket * mu_mod.nDBPS, mu_mod.cr, 17)]:
         rng = np.random.default_rng(seed)
         bits = rng.integers(0, 2, size=(batch, n_bits)).astype(np.int32)
         bits[:, -6:] = 0
@@ -672,7 +932,8 @@ def main() -> int:
     sig_len = (receiver.SIGPARSE_WIN + 320)
     data_len = receiver.SisoDataDecoder(Mod(F.VHT, 7), 48).zlen()
     shared_err = 0.0
-    for what, length in (("sig", sig_len), ("data", data_len)):
+    for what, length in (("sig", sig_len), ("data", data_len),
+                         ("mu_sigb", mu_sigb_len), ("mu_data", mu_data_len)):
         st = np.concatenate([[0, n_cap - length],
                              rng.integers(0, n_cap - length + 1, 1022)])
         st = torch.from_numpy(st.astype(np.int32)).to(dev)
@@ -804,7 +1065,8 @@ def main() -> int:
                                .astype(np.float32)).to(dev)
     mimo_len = get_mimo_decoder(Mod(F.VHT, 4, BW.BW20, 2), 16).zlen()
     multi_err = 0.0
-    for what, length in (("sig", sig_len), ("data", mimo_len)):
+    for what, length in (("sig", sig_len), ("data", mimo_len),
+                         ("mu_sigb", mu_sigb_len), ("mu_data", mu_data_len)):
         st = np.concatenate([[0, n_cap - length],
                              rng.integers(0, n_cap - length + 1, 1022)])
         st = torch.from_numpy(st.astype(np.int32)).to(dev)
@@ -953,8 +1215,182 @@ def main() -> int:
               f"{', '.join(f'{d:.4f}' for d in dts)}): "
               f"{mimo_rate[det][0]:.6g} samples/s per chain, "
               f"{mimo_rate[det][1]:.6g} packets/s {tag}")
+    del mcaps, mrxs
 
-    # -- 18. the kernels line ------------------------------------------------
+    # -- 18. TxPipeline -------------------------------------------------------
+    for name, mod, pp, data, want in tx_cases():
+        txp = TxPipeline(mod, pp, device=dev)
+        psdu = rows_on(data, 1024, dev)
+        with torch.inference_mode():
+            out = txp.step(psdu)
+            err = max_err(out, want)
+            check(tuple(out.shape) == (1024, mod.nSS, txp.n_samp, 2)
+                  and txp.n_samp == want.shape[-1] and err <= TX_TOL,
+                  f"TX {name}: [1024] rows == golden within {TX_TOL}")
+            ms = cuda_ms(lambda: txp.step(psdu))
+        print(f"TX {name} [1024 x {len(data)} B -> {mod.nSS} x "
+              f"{txp.n_samp}]: every row == golden TX, max |err| {err:.3g}; "
+              f"{ms:.4f} ms, {1024 * txp.n_samp / (ms * 1e-3):.6g} samples/s "
+              f"per stream {tag}")
+
+    # -- 19. MuTxPipeline -----------------------------------------------------
+    rng = np.random.default_rng(2)
+    ampdus = [aggregate_vht([build_udp_mpdu(bytes(rng.integers(
+        0, 256, n, dtype=np.uint8)), CFG_QOS)]) for n in (500, 300)]
+    mods = [Mod(F.VHT, 4, BW.BW20, 1), Mod(F.VHT, 2, BW.BW20, 1)]
+    qm, _ = np.linalg.qr(rng.normal(size=(64, 2, 2))
+                         + 1j * rng.normal(size=(64, 2, 2)))
+    mtx = MuTxPipeline(mods, [len(a) for a in ampdus], device=dev)
+    psdus = [rows_on(a, 256, dev) for a in ampdus]
+    q2 = torch.from_numpy(c2r(qm.astype(np.complex64))).to(dev)
+    with torch.inference_mode():
+        out = mtx.step(psdus, q2)
+        err = max_err(out, gen_ampdu_mu(ampdus, mods, qm).waveform)
+        check(tuple(out.shape) == (256, 2, mtx.n_samp, 2) and err <= TX_TOL,
+              f"MU TX: [256] rows == gen_ampdu_mu within {TX_TOL}")
+        ms = cuda_ms(lambda: mtx.step(psdus, q2))
+    print(f"MU TX VHT MCS4 + MCS2 (500 B / 300 B, random unitary Q) [256 -> "
+          f"2 x {mtx.n_samp}]: every row == gen_ampdu_mu, max |err| "
+          f"{err:.3g}; {ms:.4f} ms, {256 * 2 * mtx.n_samp / (ms * 1e-3):.6g} "
+          f"samples/s over both chains {tag}")
+
+    # -- 20. the MU-MIMO closed loop on the card -----------------------------
+    for n_user, mcss in ((2, (2, 2)), (4, (0, 1, 2, 0))):
+        reset()
+        res, mpdus = closed_loop(n_user, mcss, dev)
+        torch.cuda.synchronize()
+        got = read(launches)
+        for u, r in enumerate(res):
+            check(len(r) == 1 and r[0].fcs_ok and r[0].mu is False
+                  and r[0].mcs == mcss[u] and r[0].mpdus == [mpdus[u]],
+                  f"{n_user}-user closed loop: station {u} decodes its MPDU")
+        check(all(got[k] > 0 for k in siso_kernels),
+              f"{n_user}-user closed loop launched every kernel {got}")
+        print(f"closed loop, {n_user} users (NDP -> sta_capture_ndp -> "
+              f"feedback -> ZF Q -> MuTxPipeline -> sta_decode_mu): "
+              f"{n_user}/{n_user} stations recover their exact MPDU; "
+              f"launches {got}")
+
+    # -- 21. MuStaDecoder at batch 256 ---------------------------------------
+    smod, s_nsym, s_len, x4, s_mpdu = mu_sta_window()
+    dec4 = sounding.MuStaDecoder(smod, s_nsym, s_len, 0).to(dev)
+    band = receiver.SigTables(1).to(dev).band
+    x4d = torch.from_numpy(np.tile(c2r(x4)[None], (256, 1, 1))).to(dev)
+    t4d = torch.zeros(256, dtype=torch.int32, device=dev)
+
+    def sta_step():
+        ls4, cf4, _ = sync.sync_front_iq(x4d, t4d, band)
+        return dec4(x4d, ls4, cf4)
+
+    with torch.inference_mode():
+        reset()
+        bits = sta_step().cpu().numpy().astype(np.uint8)
+        got = read(launches)
+        n_ok = 0
+        for row in bits:
+            subs = deaggregate_vht(np.packbits(
+                row[16:16 + s_len * 8], bitorder="little").tobytes())
+            n_ok += bool(subs and subs[0].fcs_ok and subs[0].mpdu == s_mpdu)
+        check(n_ok == 256 and got["viterbi"] > 0,
+              f"MuStaDecoder: {n_ok}/256 rows decode station 0's MPDU")
+        ms = cuda_ms(sta_step)
+    print(f"MuStaDecoder VHT MCS4 [256 x {len(x4)}]: 256/256 rows decode "
+          f"the exact MPDU with a good FCS; launches {got}; {ms:.4f} ms, "
+          f"{256 * len(x4) / (ms * 1e-3):.6g} samples/s {tag}")
+
+    # -- 22. the MU stream ---------------------------------------------------
+    mu_caps, want_mu, want_su = mu_stream_captures()
+    mu_total = sum(len(c) for c in mu_caps)
+    murx = SisoReceiver(mu_pos=0, mu_gid=MU_GID, device=dev)
+
+    def mu_gate(stream, what):
+        for k, res in enumerate(stream):
+            mu = [r.mpdus for r in res if r.mu and r.fcs_ok]
+            su = [r.mpdus for r in res if not r.mu and r.fcs_ok]
+            check(mu == [[m] for m in want_mu] and su == [[m] for m in want_su]
+                  and len(res) == len(want_mu) + len(want_su),
+                  f"{what}: capture {k}: {len(mu)}/{len(want_mu)} MU, "
+                  f"{len(su)}/{len(want_su)} SU packets")
+
+    # a warm pass builds the MU decoders (moving their tables to the card
+    # synchronizes); then the counted one
+    mu_gate(counted_pass(murx, mu_caps)[0], "MU stream, warm")
+    reset()
+    stream, waits, implicit = counted_pass(murx, mu_caps)
+    got = read(launches)
+    mu_gate(stream, "MU stream")
+    check(implicit == 0, f"MU stream: {implicit} implicit syncs")
+    per_cap = []
+    for k, c in enumerate(mu_caps):
+        reset()
+        murx.decode_captures([c])
+        torch.cuda.synchronize()
+        per_cap.append(read())
+        check(all(per_cap[-1][n] > 0 for n in siso_kernels),
+              f"MU stream capture {k} launched every kernel {per_cap[-1]}")
+    best, dts, n_pk = best_of_3(murx, mu_caps)
+    # the card's busy time in one more pass (torch.profiler's device
+    # events), over the best pass's wall time: the device's share
+    busy_ms = kernels_ms(lambda: murx.decode_captures(mu_caps), iters=1,
+                         warmup=0)
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.4f} ms per pass, {busy_ms / (best * 1e3):.4f} of "
+            f"the best pass")
+    print(f"MU stream: {N_MU_CAP} captures of {len(mu_caps[0])}-"
+          f"{len(mu_caps[-1])} samples, {len(want_mu)}/{len(want_mu)} MU and "
+          f"{len(want_su)}/{len(want_su)} SU packets with a good FCS in "
+          f"each; launches {got}; per capture {per_cap[0]}; host waits on "
+          f"the device per capture {waits:.4g}, implicit syncs {implicit}")
+    print(f"time MU stream: best of 3 {best:.4f} s (runs "
+          f"{', '.join(f'{d:.4f}' for d in dts)}): "
+          f"{mu_total / best:.6g} samples/s, {n_pk / best:.6g} packets/s; "
+          f"device busy {busy} {tag}")
+    del mu_caps, murx
+
+    # -- 23. MimoReceiver with an MU group -----------------------------------
+    for fs, dcap, m0, su in mu_dual_chain_captures():
+        what = f"dual-chain MU {fs / 1e6:.0f} MHz"
+        reset()
+        pkts, _ = MimoReceiver(sample_rate_hz=fs, mu_pos=0, mu_gid=MU_GID,
+                               device=dev).decode_capture_full(dcap)
+        torch.cuda.synchronize()
+        got = read(launches)
+        check(all(got[k] > 0 for k in mimo_kernels),
+              f"{what} launched every kernel of its path {got}")
+        check([r.mpdus for r in pkts if r.mu and r.fcs_ok] == [[m0]]
+              and [r.mpdus for r in pkts if not r.mu and r.fcs_ok]
+              == [[m] for m in su], f"{what}: every packet decodes")
+        ref, _ = MimoReceiver(sample_rate_hz=fs, mu_pos=0, mu_gid=MU_GID,
+                              device="cpu").decode_capture_full(dcap)
+        print(f"{what}: the MU packet (MRC over 2 chains) and {len(su)} 2x2 "
+              f"SU packet(s) decode; launches {got}; vs CPU run: fields "
+              f"equal, " + check_same_packets(pkts, ref, what,
+                                               evm_tol=EVM_TOL))
+
+    # -- 24. PhyService's sounding loop --------------------------------------
+    reset()
+    ndp_recs, mu_recs, svc_mpdus = sounding_loop(dev)
+    torch.cuda.synchronize()
+    got = read(launches)
+    c_ndp, c_mu, _ = sounding_loop("cpu")
+    check(mu_recs == c_mu and [[wire.unpack_rx_record(r).payload
+                                for r in recs] for recs in mu_recs]
+          == [[m] for m in svc_mpdus],
+          "PhyService: MU data records == CPU run, one MPDU per station")
+    d_rep = 0.0
+    for a, b in zip(ndp_recs, c_ndp):
+        check(len(a) == len(b) == 1 and a[0][:3] == b[0][:3],
+              "PhyService: one channel report per station, header == CPU")
+        d_rep = max(d_rep, float(np.abs(wire.unpack_rx_record(a[0]).ltf_iq
+                                        - wire.unpack_rx_record(b[0]).ltf_iq)
+                                 .max()))
+    check(d_rep <= NDP_TOL and all(got[k] > 0 for k in siso_kernels),
+          f"PhyService: channel reports within {NDP_TOL} of CPU, launches")
+    print(f"PhyService sounding loop: 2 channel reports (|d| {d_rep:.3g} vs "
+          f"CPU run), BFQ, MU request; each station's data records "
+          f"byte-identical to the CPU run; launches {got}")
+
+    # -- 25. the kernels line ------------------------------------------------
     def entry(name, source, replaces, key, err, t):
         return {"name": name, "route": "cuda",
                 "source": f"ieee80211_tpu_torch/csrc/{source}",

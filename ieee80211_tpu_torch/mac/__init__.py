@@ -1,7 +1,7 @@
 """MAC layer: frame build/parse, A-MPDU aggregation.
 
-Copy of ieee80211_tpu/mac/__init__.py without the BF report codec
-(bf_report.py needs mu/feedback.py, which no ported module calls yet).
+Copy of ieee80211_tpu/mac/__init__.py; the BF report codec is
+mac/bf_report.py, which the package does not import here either.
 """
 from .frames import (AmpduSubframe, MacConfig, ParsedMpdu, ParsedUdp,
                      aggregate_ht, aggregate_vht, build_bf_report_poll,

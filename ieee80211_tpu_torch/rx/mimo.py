@@ -14,8 +14,9 @@ The decoders are `nn.Module`s holding their constant tables as buffers
 (`mimo_tables_from_numpy`; the MRC decoder's are the SISO decoder's). The
 planner (`_plan_batch`, `_plan_one`) and `merge_triggers` are numpy copies,
 since the JAX module imports jax; tests/test_torch_mimo_receiver.py pins
-them to the originals. Left out, as in the JAX package: the downlink MU
-lanes (`mu_gid`) and a dual-chain device trigger.
+them to the originals. With `mu_gid` set, the downlink MU lanes of the
+SISO receiver run over both chains (MRC of the own-stream channels). Left
+out, as in the JAX package: a dual-chain device trigger.
 """
 from __future__ import annotations
 
@@ -28,7 +29,6 @@ import torch
 
 from .. import native
 from ..models.pipeline import as_tables
-from ..mu.sounding import NdpCapture
 from ..ops import coding, demod, sync
 from ..specs import BW, F, Mod, tables
 from ..specs import interleaver as ilv
@@ -343,7 +343,10 @@ class MimoReceiver(SisoReceiver):
     it inherits: one capture upload, one MRC SIG-parse batch (one packed
     meta fetch), one decode per (Mod, bucket) group; 2x2 plans go through
     the MIMO detector, legacy and SISO plans through the MRC decoder, and
-    VHT NDPs come back as one NdpCapture per chain.
+    VHT NDPs come back as one NdpCapture per chain. With `mu_gid` set, the
+    station's stream of that group's downlink MU PPDUs decodes too, its
+    own-stream channels MRC-combined over both chains; the auto detector's
+    ML retry leaves MU packets alone.
 
     detector:
       * "auto" (default): 2x2 plans decode through ZF; any that fail the FCS
@@ -444,7 +447,7 @@ class MimoReceiver(SisoReceiver):
     def _dispatch_plans(self, cap_dev, npad, plans, decoder_for=None):
         futs = super()._dispatch_plans(cap_dev, npad, plans, decoder_for)
         if (decoder_for is None and self.detector == "auto"
-                and any(p.mod.nSS == 2 for _, p in plans)):
+                and any(p.mod.nSS == 2 and not p.mu for _, p in plans)):
             futs = _FutsWithCtx(futs)
             futs.ctx = (cap_dev, npad)
         return futs
@@ -460,7 +463,7 @@ class MimoReceiver(SisoReceiver):
         retry = []
         for items, *_ in futs:
             for i, p in items:
-                if p.mod.nSS != 2:
+                if p.mu or p.mod.nSS != 2:
                     continue
                 r = res_by_i.get(i)
                 if r is not None and r.fcs_ok and r.sigb_ok is not False:
@@ -628,6 +631,7 @@ class MimoReceiver(SisoReceiver):
     def _extract_ndp(self, capture: np.ndarray, p) -> Optional[list]:
         """CFO-corrected VHT-LTF windows of a detected NDP, one NdpCapture
         per RX chain (host side: the LTFs are a few hundred samples)."""
+        from ..mu.sounding import NdpCapture
         n_ltf = p.mod.nLTF
         start = p.win_start + p.ltf_start
         out = []

@@ -24,8 +24,9 @@ hand-written kernel (ops/cuda/); device->host fetches go into pinned host
 memory behind a CUDA event, so `decode_captures` overlaps the host's work on
 one capture with the device's on another.
 
-Not ported here: the downlink MU lanes (`_plan_mu_batch`,
-`_dispatch_mu_sigb`, `_plan_mu_data`).
+With `mu_gid` set, downlink MU PPDUs of that group decode in the same
+passes (`_plan_mu_batch` -> `_dispatch_mu_sigb` -> `_plan_mu_data`, over
+mu/sounding.py's `mu_sigb_parse_capture` and `MuStaDataDecoder` lanes).
 """
 from __future__ import annotations
 
@@ -42,7 +43,6 @@ from torch import nn
 from .. import native
 from ..mac import deaggregate_ht, deaggregate_vht
 from ..models.pipeline import as_tables, data_tables_from_numpy
-from ..mu.sounding import NdpCapture
 from ..ops import coding, demod, sync
 from ..ops.cuda.gather import (capture_slice_iq_cuda,
                                capture_slice_iq_mimo_cuda)
@@ -750,6 +750,19 @@ class _Plan:
     sigb_crc: int = 0    # expected CRC-8 of the SIG-B pre-tail bits
 
 
+@dataclasses.dataclass
+class _MuCand:
+    """An MU candidate window awaiting its SIG-B (mcs, len) decode."""
+    win_start: int
+    ltf_start: int
+    cfo: float
+    cfo_hz: float
+    snr: float
+    n_sym: int
+    stream_idx: int
+    n_sts_tot: int
+
+
 class _Fetch:
     """A device->host copy in flight. On the card the copy goes into pinned
     host memory behind a CUDA event, so the host waits only when it needs
@@ -790,7 +803,9 @@ class SisoReceiver:
                  mu_pos: int = 0, mu_gid: Optional[int] = None,
                  device=None):
         """mu_pos/mu_gid: this station's MU-MIMO group position and group
-        id. Only SU decoding is ported: mu_gid must be None."""
+        id. With mu_gid set, downlink MU PPDUs of that group decode in the
+        same batched passes as SU traffic; with None (the default) MU
+        planning is skipped."""
         self.fs = sample_rate_hz
         self.q = int(round(sample_rate_hz / 20e6))
         if self.q not in (1, 2, 4):
@@ -799,10 +814,6 @@ class SisoReceiver:
             raise ValueError("ingest must be 'auto', 'f32' or 'int8'")
         if trigger not in ("host", "device"):
             raise ValueError("trigger must be 'host' or 'device'")
-        if mu_gid is not None:
-            raise NotImplementedError(
-                "downlink MU decode (mu_gid) is not ported yet: ROADMAP.md "
-                "section 1, item 10")
         self.bw = {1: BW.BW20, 2: BW.BW40, 4: BW.BW80}[self.q]
         self.ingest = ingest
         self.trigger = trigger
@@ -1120,6 +1131,7 @@ class SisoReceiver:
     def _extract_ndp(self, capture: np.ndarray, p: _Plan):
         """CFO-corrected VHT-LTF windows of a detected NDP (host side: the
         LTFs are a few hundred samples)."""
+        from ..mu.sounding import NdpCapture
         n_ltf = p.mod.nLTF
         start = p.win_start + p.ltf_start
         wins = []
@@ -1164,35 +1176,46 @@ class SisoReceiver:
         return get_data_decoder(mod, n_sym_bucket, self.device)
 
     def _dispatch_plans(self, cap_dev, npad, plans, decoder_for=None):
-        """Group plans by (Mod, bucket) and submit one decode per group.
-        Returns futs for _finish_plans: each group's packed bytes, EVM SNRs
-        (one per stream) and SIG-B flag travel back in ONE fetch of its real
-        rows. decoder_for overrides `_decoder_for` (the dual-chain
-        receiver's exact-ML retry pass re-dispatches through it)."""
+        """Group plans by (Mod, bucket, MU, stream, nSTS) and submit one
+        decode per group. Returns futs for _finish_plans: each group's
+        packed bytes, EVM SNRs (one per stream) and SIG-B flag travel back
+        in ONE fetch of its real rows. decoder_for overrides `_decoder_for`
+        for SU groups (the dual-chain receiver's exact-ML retry pass
+        re-dispatches through it); MU groups decode in MuStaDataDecoder
+        lanes, which also check each packet's SIG-B CRC-8."""
+        from ..mu.sounding import get_mu_sta_data_decoder
         groups: dict = {}
         for i, p in plans:
-            groups.setdefault((p.mod, _bucket(p.n_sym)), []).append((i, p))
+            groups.setdefault((p.mod, _bucket(p.n_sym), p.mu, p.stream_idx,
+                               p.n_sts_tot), []).append((i, p))
         futs = []
-        for (mod, nb), items in groups.items():
-            dec = (decoder_for or self._decoder_for)(mod, nb)
+        for (mod, nb, mu, si, nt), items in groups.items():
+            if mu:
+                dec = get_mu_sta_data_decoder(mod, nb, si, nt, self.device)
+            else:
+                dec = (decoder_for or self._decoder_for)(mod, nb)
             w = dec.window_capacity()
             g = len(items)
             gp = group_pad(g)
-            rows = np.zeros((4, gp), np.int32)   # t_abs, ltf, n_valid, cfo
+            # t_abs, ltf, n_valid, cfo (float32 bits), SIG-B CRC-8
+            rows = np.zeros((5, gp), np.int32)
             cfo = np.zeros(gp, np.float32)
             for j, (i, p) in enumerate(items):
                 tc = min(p.win_start, npad - w)
                 rows[0, j] = tc
                 rows[1, j] = p.ltf_start + (p.win_start - tc)
                 rows[2, j] = p.n_sym
+                rows[4, j] = p.sigb_crc
                 cfo[j] = p.cfo
             if gp > g:       # pad rows replicate row 0 (results ignored)
                 rows[:, g:] = rows[:, :1]
                 cfo[g:] = cfo[0]
             rows[3] = cfo.view(np.int32)
             dev = self._to_device(rows)
-            packed, evm, sigb = dec.decode_from_capture(
-                cap_dev, dev[0], dev[1], dev[3].view(torch.float32), dev[2])
+            args = (cap_dev, dev[0], dev[1], dev[3].view(torch.float32),
+                    dev[2])
+            packed, evm, sigb = (dec.decode_from_capture(*args, dev[4]) if mu
+                                 else dec.decode_from_capture(*args))
             # fetch only the bytes any packet in the group can use, in
             # 256-byte buckets
             nb_need = 2 + max(p.psdu_len for _, p in items)
@@ -1214,6 +1237,11 @@ class SisoReceiver:
                 np.float32).tolist()
             sb = arr[:, nb_pad + 4 * n_ev].astype(bool).tolist()
             for j, (i, p) in enumerate(items):
+                if p.mu and not sb[j]:
+                    # MU SIG-B CRC-8 mismatch vs the SERVICE field: the
+                    # (mcs, len) decode is unreliable; drop, as the
+                    # reference does (signalParserVhtB)
+                    continue
                 psdu = pb[j, 2:2 + p.psdu_len].tobytes()
                 # the joint EVM SNR is the mean of the per-stream ones
                 r = assemble_psdu(
@@ -1231,10 +1259,134 @@ class SisoReceiver:
         return self._finish_plans(self._dispatch_plans(cap_dev, npad, plans))
 
     def _dispatch_with_mu(self, cap_dev, npad, plans, cap_len, meta, n):
-        """The SU dispatch. (The JAX receiver adds its downlink MU lanes
-        here when mu_gid is set; those are not ported.)"""
-        del cap_len, meta, n
-        return self._dispatch_plans(cap_dev, npad, plans)
+        """SU dispatch plus (when mu_gid is set) the two-stage MU chain: the
+        MU SIG-B round trip overlaps the SU decode dispatches. Returns futs
+        for _finish_plans."""
+        mu_cands = self._plan_mu_batch(cap_len, meta, n)
+        sigb_futs = (self._dispatch_mu_sigb(cap_dev, npad, mu_cands)
+                     if mu_cands else [])
+        futs = self._dispatch_plans(cap_dev, npad, plans)
+        if sigb_futs:
+            futs += self._dispatch_plans(cap_dev, npad,
+                                         self._plan_mu_data(sigb_futs))
+        return futs
+
+    # -- downlink MU-STA decode (streaming, batched) -----------------------
+    # MU windows found in planning go through a batched SIG-B lane (one
+    # decode per (stream_idx, nSTS) group, one packed word per window
+    # fetched) to learn each packet's (mcs, len), then through bucketed
+    # MuStaDataDecoder lanes like every other decoder group.
+
+    def _plan_mu_batch(self, cap_len: int, meta, n: int):
+        """MU candidate windows: VHT SIG-A with gid == self.mu_gid whose
+        group layout gives this station a single stream, at the capture's
+        bandwidth. Returns [(i, _MuCand)] for _dispatch_mu_sigb."""
+        if self.mu_gid is None:
+            return []
+        lsig_ok = np.asarray(meta["lsig_ok"][:n]).astype(bool)
+        vht_ok = np.asarray(meta["vht_ok"][:n]).astype(bool)
+        snr = np.asarray(meta["snr"][:n], np.float64)
+        l_mcs = np.asarray(meta["l_mcs"][:n], np.int64)
+        l_len = np.asarray(meta["l_len"][:n], np.int64)
+        vb = np.asarray(meta["vht_bits"][:n], np.int64)
+        gid = vb[:, 4:10] @ (1 << np.arange(6, dtype=np.int64))
+        v_bw = vb[:, 0] + 2 * vb[:, 1]
+        v_sgi = vb[:, 24].astype(bool)
+        # per-user NSTS fields: 4 users x 3 bits at SIG-A bits 10..21
+        nsts_u = np.stack([vb[:, 10 + 3 * u:13 + 3 * u]
+                           @ (1 << np.arange(3, dtype=np.int64))
+                           for u in range(4)], axis=1)      # [n, 4]
+        n_tot = nsts_u.sum(axis=1)
+        cand = (lsig_ok & vht_ok & (snr > 0.0) & (l_mcs == 0)
+                & (gid == self.mu_gid) & (v_bw == int(self.bw)) & ~v_sgi
+                & (nsts_u[:, self.mu_pos] == 1)
+                & (n_tot >= 1) & (n_tot <= 4))
+        if not np.any(cand):
+            return []
+        win_start = np.asarray(meta["win_start"][:n], np.int64)
+        ltf_start = np.asarray(meta["ltf_start"][:n], np.int64)
+        cfo = np.asarray(meta["cfo"][:n], np.float64)
+        cfo_hz = cfo * self.fs / (2 * np.pi) * -1.0
+        n_ltf = np.asarray(tables.N_LTF)[np.minimum(n_tot, 4)]
+        n_sym_l = -(-(l_len * 8 + 16 + 6) // 24)
+        n_sym = n_sym_l - 2 - 1 - n_ltf - 1
+        stream_idx = np.concatenate(
+            [np.zeros((n, 1), np.int64),
+             np.cumsum(nsts_u, axis=1)[:, :-1]], axis=1)[:, self.mu_pos]
+        out = []
+        for i in np.flatnonzero(cand):
+            if n_sym[i] <= 0:
+                continue            # MU NDPs don't exist; gid'd NDP = junk
+            # EXACT packet end (SIG-B + data; the device capture is
+            # zero-padded past cap_len)
+            ext = (int(ltf_start[i])
+                   + (448 + 80 * int(n_ltf[i]) + 80
+                      + int(n_sym[i]) * 80) * self.q)
+            if int(win_start[i]) + ext > cap_len:
+                continue
+            out.append((i, _MuCand(int(win_start[i]), int(ltf_start[i]),
+                                   float(cfo[i]), float(cfo_hz[i]),
+                                   float(snr[i]), int(n_sym[i]),
+                                   int(stream_idx[i]), int(n_tot[i]))))
+        return out
+
+    def _dispatch_mu_sigb(self, cap_dev, npad, mu_cands):
+        """Batched SIG-B decode per (stream_idx, nSTS-total) group, each
+        group's words fetched behind an event. Returns futs for
+        _plan_mu_data."""
+        from ..mu.sounding import get_mu_sigb_tables, mu_sigb_parse_capture
+        groups: dict = {}
+        for i, c in mu_cands:
+            groups.setdefault((c.stream_idx, c.n_sts_tot), []).append((i, c))
+        futs = []
+        for (si, nt), items in groups.items():
+            wlen = (272 + 448 + 80 * int(tables.N_LTF[nt]) + 160) * self.q
+            g = len(items)
+            gp = group_pad(g)
+            rows = np.zeros((3, gp), np.int32)   # t_abs, ltf, cfo bits
+            cfo = np.zeros(gp, np.float32)
+            for j, (i, c) in enumerate(items):
+                tc = min(c.win_start, npad - wlen)
+                rows[0, j] = tc
+                rows[1, j] = c.ltf_start + (c.win_start - tc)
+                cfo[j] = c.cfo
+            if gp > g:
+                rows[:, g:] = rows[:, :1]
+                cfo[g:] = cfo[0]
+            rows[2] = cfo.view(np.int32)
+            dev = self._to_device(rows)
+            words = mu_sigb_parse_capture(
+                cap_dev, dev[0], dev[1], dev[2].view(torch.float32), wlen,
+                get_mu_sigb_tables(self.q, si, nt, self.device))
+            futs.append((items, _Fetch(words[:g])))
+        return futs
+
+    def _plan_mu_data(self, sigb_futs):
+        """Fetch the SIG-B words, apply the (mcs, len) gates, and build the
+        final MU _Plans for _dispatch_plans."""
+        from ..mu.sounding import MU_SIGB_LEN
+        n_len = MU_SIGB_LEN[self.bw]
+        plans = []
+        for items, fetch in sigb_futs:
+            wd = self._wait(fetch)
+            for j, (i, c) in enumerate(items):
+                bits = (int(wd[j]) >> np.arange(n_len + 4)) & 1
+                mcs = int(bits[n_len:n_len + 4] @ (1 << np.arange(4)))
+                try:
+                    mod = Mod(F.VHT, mcs, self.bw, 1)
+                except ValueError:
+                    continue          # invalid 1-SS MCS at this bandwidth
+                psdu_len = (c.n_sym * mod.nDBPS - 16 - 6 * mod.nES) // 8
+                if c.n_sym * mod.nDBPS > 33000 or psdu_len <= 0:
+                    continue
+                crc = int(np.asarray(crc8_bits(list(bits[:n_len + 4])))
+                          @ (1 << np.arange(8)))
+                plans.append((i, _Plan(
+                    mod, c.n_sym, psdu_len, True, c.win_start, c.ltf_start,
+                    c.cfo, c.cfo_hz, c.snr, mu=True,
+                    stream_idx=c.stream_idx, n_sts_tot=c.n_sts_tot,
+                    sigb_crc=crc)))
+        return plans
 
     def _plan_batch(self, cap_len: int, meta, n: int):
         """Vectorized packet planning over all n trigger windows: the gates

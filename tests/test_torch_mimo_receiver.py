@@ -249,8 +249,8 @@ def test_cpu_receiver_launches_no_kernel():
 
 
 def test_options_are_checked():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        MimoReceiver(mu_gid=1, device="cpu")
+    rx = MimoReceiver(mu_pos=1, mu_gid=7, device="cpu")
+    assert (rx.mu_pos, rx.mu_gid, rx.detector) == (1, 7, "auto")
     with pytest.raises(NotImplementedError, match="device trigger"):
         MimoReceiver(trigger="device", device="cpu")
     with pytest.raises(ValueError):

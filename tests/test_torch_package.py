@@ -1,8 +1,8 @@
 """The port's package as a whole: its constant tables equal the JAX
-package's numpy helpers element for element, importing it never loads jax
-or the JAX package and never builds a kernel, its entry points run on the
-card unless asked for the CPU, and the receive module's buffers are those
-tables.
+package's numpy helpers element for element, importing it (the TX, MU and
+API modules included) never loads jax or the JAX package and never builds a
+kernel, its entry points run on the card unless asked for the CPU, and the
+receive module's buffers are those tables.
 """
 import ast
 import json
@@ -130,7 +130,12 @@ def test_import_never_loads_jax(import_probe):
             "ieee80211_tpu_torch.specs.tables",
             "ieee80211_tpu_torch.mac.frames",
             "ieee80211_tpu_torch.native.lib",
-            "ieee80211_tpu_torch.tx.golden"} <= set(
+            "ieee80211_tpu_torch.tx.golden",
+            "ieee80211_tpu_torch.tx.torch_tx",
+            "ieee80211_tpu_torch.mu.feedback",
+            "ieee80211_tpu_torch.mac.bf_report",
+            "ieee80211_tpu_torch.api.descriptors",
+            "ieee80211_tpu_torch.api.service"} <= set(
                 import_probe["modules"])
     assert import_probe["jax"] == []
 
@@ -223,6 +228,64 @@ def test_decoder_buffers_are_the_tables(mod, n_sym):
 
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _slice_entry_points():
+    """The entry points of the TX, MU and API slice, each built without a
+    device argument (so on the card), and with `device`."""
+    from ieee80211_tpu_torch.api import PhyService
+    from ieee80211_tpu_torch.mu import sounding
+    from ieee80211_tpu_torch.rx import MimoReceiver, SisoReceiver
+    from ieee80211_tpu_torch.specs.modulation import ppdu_params_aggregate
+    from ieee80211_tpu_torch.tx import (MuTxPipeline, TxPipeline,
+                                        get_tx_pipeline)
+    mod = port_mod(Mod(F.VHT, 4))
+    pp = ppdu_params_aggregate(mod, 100)
+    silence = np.zeros(4000, np.complex64)
+    return {
+        "TxPipeline": lambda **kw: TxPipeline(mod, pp, **kw),
+        "MuTxPipeline": lambda **kw: MuTxPipeline([mod, mod], [100, 60],
+                                                  **kw),
+        "get_tx_pipeline": lambda **kw: get_tx_pipeline(mod, 100, True,
+                                                        **kw),
+        "sta_capture_ndp": lambda **kw: sounding.sta_capture_ndp(silence,
+                                                                 **kw),
+        "sta_decode_mu": lambda **kw: sounding.sta_decode_mu(silence, 0,
+                                                             **kw),
+        "get_mu_sta_decoder": lambda **kw: sounding.get_mu_sta_decoder(
+            mod, 10, 100, 0, **kw),
+        "get_mu_sta_data_decoder": lambda **kw:
+            sounding.get_mu_sta_data_decoder(mod, 16, 1, 2, **kw),
+        "get_mu_sigb_tables": lambda **kw: sounding.get_mu_sigb_tables(
+            1, 0, 2, **kw),
+        "SisoReceiver(mu_gid)": lambda **kw: SisoReceiver(mu_gid=2, **kw),
+        "MimoReceiver(mu_gid)": lambda **kw: MimoReceiver(mu_gid=2, **kw),
+        "PhyService": lambda **kw: PhyService(**kw),
+    }
+
+
+@pytest.mark.parametrize("name", list(_slice_entry_points()))
+def test_slice_entry_points_need_a_card(monkeypatch, name):
+    build = _slice_entry_points()[name]
+    _no_card(monkeypatch)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build(**kw)
+
+
+@pytest.mark.parametrize("name", list(_slice_entry_points()))
+def test_slice_entry_points_run_on_the_cpu_when_asked(monkeypatch, name):
+    _no_card(monkeypatch)
+    out = _slice_entry_points()[name](device="cpu")
+    cpu = torch.device("cpu")
+    if isinstance(out, torch.nn.Module):
+        assert {b.device for b in out.buffers()} == {cpu}
+    elif hasattr(out, "siso_rx"):
+        assert out.siso_rx.device == out.mimo_rx.device == cpu
+    elif hasattr(out, "device"):
+        assert out.device == cpu
+    else:
+        assert out in (None, [])     # silence: no NDP, no packet
 
 
 def test_entry_points_without_a_device_need_a_card(monkeypatch):

@@ -178,8 +178,9 @@ def test_cpu_receiver_launches_no_kernel():
 
 
 def test_options_are_checked():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SisoReceiver(mu_gid=1, device="cpu")
+    rx = SisoReceiver(mu_pos=1, mu_gid=7, device="cpu")
+    assert (rx.mu_pos, rx.mu_gid) == (1, 7)
+    assert SisoReceiver(device="cpu").mu_gid is None
     with pytest.raises(ValueError):
         SisoReceiver(sample_rate_hz=60e6, device="cpu")
     with pytest.raises(ValueError):
