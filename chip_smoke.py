@@ -9,8 +9,13 @@ Phases, in order; any failed check raises and the exit code is non-zero:
   2. build of every CUDA kernel from ieee80211_tpu_torch/csrc/ with nvcc;
   3. the Viterbi kernel against its plain PyTorch version on the card, bit
      for bit, and against the encoder's input bits, at the shapes of the
-     receive step and of the streaming receiver;
-  4. the window-slice kernel against its plain version, element for element;
+     receive step and of the streaming receiver; then, bit for bit, on the
+     inputs that the PDR acceptance sweep (phase 25) handed it, recorded as
+     they launched, at 0 dB and at the top SNR of rows with its longest
+     DATA fields, every bandwidth, MRC, 2x2 and a 4-user MU station
+     (100 packets of 500 B);
+  4. the window-slice kernel against its plain version, element for element,
+     on random windows and on the windows those sweep points cut;
   5. + 6. `RxPipeline.step` at VHT MCS7 20 MHz (500 B, batch 1024) and VHT
      MCS9 80 MHz (1800 B, batch 256), the inputs of bench.py's two RX rows:
      every packet must decode to the exact MPDU with a good FCS, the first
@@ -74,16 +79,35 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      tests/test_mu_stream.py (20 MHz with 2x2 SU traffic, 40 MHz), against
      the port's CPU run;
  24. `PhyService`: the sounding loop of tests/test_api.py:67-103 on the card,
-     its records against the port's CPU run.
+     its records against the port's CPU run;
+ 25. a cut of the PDR acceptance sweep (perf/acceptance.py) at full width
+     (500 B, 100 packets per point): one row of each group (SISO VHT7, 2x2
+     HT8, MRC VHT4, 80 MHz fading VHT4 and VHT7, 40 MHz 2x2 fading HT12, the
+     unweighted VHT7 @80 row, 2-user MU MCS4) at a dead SNR and at 30 dB
+     (36 dB fading): PDR 1.0 at the top but for the unweighted row, which
+     stays at or below the weighted one; Viterbi and per-row slice launches
+     in every row, 0 implicit syncs per point, each point's wall and step
+     time, the cut's packets/s; one numpy noise batch at 30 dB decodes to
+     the same bytes on the card as on the CPU (SISO and 2x2); the ML
+     detector's peak memory at 2x2 VHT9 80 MHz;
+ 26. the examples on the card: gen_test_captures' bins through inspect_bin
+     (every packet with a good FCS, the 2x2 pair through MimoReceiver),
+     stream_decode SISO and --dual (every packet, MU included; shared-source
+     and multi-chain slice launches), mu_sounding_demo (each station its
+     own payload).
 The MU shapes (a SIG-B group of 26 bits, the MU stream's DATA bucket, and
 the MU window lengths of both capture-slice modes) join phases 3, 9 and 13.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package
 (the GPU machine has no JAX): only the port, torch and numpy.
 """
+import contextlib
+import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -93,6 +117,8 @@ import torch
 from ieee80211_tpu_torch import native
 from ieee80211_tpu_torch.api import PhyService
 from ieee80211_tpu_torch.api import descriptors as wire
+from ieee80211_tpu_torch.examples import (gen_test_captures, inspect_bin,
+                                          mu_sounding_demo, stream_decode)
 from ieee80211_tpu_torch.mac import (MacConfig, aggregate_vht, build_udp_mpdu,
                                      deaggregate_vht)
 from ieee80211_tpu_torch.mu import (map_q_to_grid, ndp_ltf_channel,
@@ -104,7 +130,8 @@ from ieee80211_tpu_torch.ops.cuda import build
 from ieee80211_tpu_torch.ops.cuda import gather as kg
 from ieee80211_tpu_torch.ops.cuda import vit_floor as kf
 from ieee80211_tpu_torch.ops.cuda import viterbi as kv
-from ieee80211_tpu_torch.perf import vit_floor
+from ieee80211_tpu_torch.perf import acceptance as acc
+from ieee80211_tpu_torch.perf import pdr, vit_floor
 from ieee80211_tpu_torch.perf.timing import cuda_ms, device_ms, kernels_ms
 from ieee80211_tpu_torch.rx import (MimoDataDecoder, MimoReceiver,
                                     SisoReceiver, get_mimo_decoder, receiver)
@@ -114,7 +141,7 @@ from ieee80211_tpu_torch.specs.modulation import (ppdu_params_aggregate,
 from ieee80211_tpu_torch.tx import (MuTxPipeline, TxPipeline, finalize,
                                     gen_ampdu, gen_ampdu_mu, gen_mpdu)
 from ieee80211_tpu_torch.tx.golden import bcc
-from ieee80211_tpu_torch.utils import c2r
+from ieee80211_tpu_torch.utils import c2r, load_complex_bin
 
 DEVICE = "cuda:0"
 # the least time of a kernel's work (bound_ms), from the H100 SXM's published
@@ -448,22 +475,28 @@ def mimo_stream_captures(reps: int = N_MIMO_REP):
             N_MIMO_SEG * reps)
 
 
-def counted_pass(srx, caps):
-    """One pass of `srx.decode_captures(caps)` under the sync debug mode.
-    Returns (results, host waits per capture, implicit syncs)."""
-    waits = srx.n_waits
+def counted(fn):
+    """fn() under the sync debug mode. Returns (its result, implicit
+    syncs)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            stream = srx.decode_captures(caps)
+            out = fn()
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     # the mode's own notice on enabling is a warning too: count only the
     # ops it flags
-    implicit = sum("synchroniz" in str(w.message)
-                   and "prototype" not in str(w.message) for w in caught)
+    return out, sum("synchroniz" in str(w.message)
+                    and "prototype" not in str(w.message) for w in caught)
+
+
+def counted_pass(srx, caps):
+    """One pass of `srx.decode_captures(caps)` under the sync debug mode.
+    Returns (results, host waits per capture, implicit syncs)."""
+    waits = srx.n_waits
+    stream, implicit = counted(lambda: srx.decode_captures(caps))
     return stream, (srx.n_waits - waits) / len(caps), implicit
 
 
@@ -702,6 +735,115 @@ def sounding_loop(device):
     return ndp_recs, mu_recs, m
 
 
+# the acceptance sweep's operating point (perf/acceptance.py): 500 B
+# payloads, 100 packets per SNR point
+ACC_PAYLOAD, ACC_NPKT = 500, 100
+
+
+def acceptance_rows():
+    """The cut of the acceptance sweep: one row of each group, as
+    run_acceptance builds it, at its dead SNR point (0 dB) and its top one
+    (30 dB, 36 dB for the fading rows): [(group, build, pipeline, (fmt,
+    mcs), channel draw, top SNR)]. The weighted VHT7 @80 fading row is the
+    unweighted row's yardstick."""
+    bw80 = pdr._build_packet_bw(BW.BW80)
+    return [
+        ("siso", pdr._build_packet, RxPipeline, (F.VHT, 7), None, 30.0),
+        ("mimo_2x2", pdr._build_mimo_packet, pdr.MimoRxPipeline, (F.HT, 8),
+         None, 30.0),
+        ("siso_mrc_2rx", acc._build_mrc_packet, acc._MrcPipe, (F.VHT, 4),
+         None, 30.0),
+        ("siso_fading_80", bw80, RxPipeline, (F.VHT, 4), acc._chan_fir(4),
+         36.0),
+        ("siso_fading_80", bw80, RxPipeline, (F.VHT, 7), acc._chan_fir(4),
+         36.0),
+        ("mimo_2x2_fading_40", pdr._build_mimo_packet_bw(BW.BW40),
+         pdr.MimoRxPipeline, (F.HT, 12), acc._chan_mix, 36.0),
+        ("siso_fading_80_unweighted_llr", bw80,
+         functools.partial(RxPipeline, csi_weight=False), (F.VHT, 7),
+         acc._chan_fir(4), 36.0)]
+
+
+# rows of the acceptance sweep whose kernel inputs phases 3 and 4 hold
+# against the plain versions: the longest DATA fields (VHT0 at 500 B on one
+# and on two chains, VHT0 and 2x2 VHT9 at 80 MHz), every bandwidth, the
+# per-chain windows of MRC and 2x2, and a 4-user MU station below
+# (name, build, pipeline, (fmt, mcs), channel draw, top SNR)
+SWEEP_KERNEL_ROWS = [
+    ("siso/VHT0", pdr._build_packet, RxPipeline, (F.VHT, 0), None, 30.0),
+    ("siso_mrc_2rx/VHT0", acc._build_mrc_packet, acc._MrcPipe, (F.VHT, 0),
+     None, 30.0),
+    ("mimo_2x2/HT15", pdr._build_mimo_packet, pdr.MimoRxPipeline,
+     (F.HT, 15), None, 30.0),
+    ("siso_fading_40/VHT9", pdr._build_packet_bw(BW.BW40), RxPipeline,
+     (F.VHT, 9), acc._chan_fir(2), 36.0),
+    ("siso_fading_80/VHT0", pdr._build_packet_bw(BW.BW80), RxPipeline,
+     (F.VHT, 0), acc._chan_fir(4), 36.0),
+    ("mimo_2x2_fading_40/HT15", pdr._build_mimo_packet_bw(BW.BW40),
+     pdr.MimoRxPipeline, (F.HT, 15), acc._chan_mix, 36.0),
+    ("mimo_2x2_fading_80/VHT9", pdr._build_mimo_packet_bw(BW.BW80),
+     pdr.MimoRxPipeline, (F.VHT, 9), acc._chan_mix, 36.0)]
+
+
+@contextlib.contextmanager
+def kernel_inputs():
+    """Record, cloned, the inputs of every Viterbi and per-row slice launch
+    made inside the block: yields a list that gets ("viterbi", (pairs, w0,
+    w1, renorm)) and ("slice", (x2, start, length)) in launch order."""
+    calls = []
+    vit, sli = coding.viterbi_pairs_cuda, sync.batch_slice_iq_cuda
+
+    def vit_rec(lp, w0, w1, renorm):
+        calls.append(("viterbi", (lp.clone(), w0, w1, renorm)))
+        return vit(lp, w0, w1, renorm)
+
+    def sli_rec(x2, start, length):
+        calls.append(("slice", (x2.clone(), start.clone(), length)))
+        return sli(x2, start, length)
+
+    coding.viterbi_pairs_cuda, sync.batch_slice_iq_cuda = vit_rec, sli_rec
+    try:
+        yield calls
+    finally:
+        coding.viterbi_pairs_cuda, sync.batch_slice_iq_cuda = vit, sli
+
+
+def sweep_kernel_inputs(dev):
+    """What the acceptance sweep hands the Viterbi and per-row slice
+    kernels: one point of each of SWEEP_KERNEL_ROWS and of station 0 of the
+    4-user MU MCS4 row, at the dead SNR (0 dB: noisy LLRs, near-tie paths
+    everywhere) and at the row's top one, 100 packets of 500 B each.
+    Returns [(row, SNR, [(kind, args), ...])]."""
+    rows = [(name, top, pdr._prepare_row(build_fn, pipe_cls, fmt, mcs,
+                                         ACC_NPKT, ACC_PAYLOAD, 0, chan, dev))
+            for name, build_fn, pipe_cls, (fmt, mcs), chan, top
+            in SWEEP_KERNEL_ROWS]
+    h, q64 = acc._mu_sounding(0, 4, dev)
+    rows.append(("mu_4user/MU_VHT4x4", 30.0, acc._mu_rows(
+        4, 4, h, q64, ACC_NPKT, ACC_PAYLOAD, 0, dev)[0]))
+    gen = pdr.noise_generator(0, dev)
+    out = []
+    for name, top, row in rows:
+        for snr in (0.0, top):
+            with kernel_inputs() as calls:
+                row.n_ok(gen, pdr.noise_amp_at(snr))
+            out.append((name, snr, calls))
+    return out
+
+
+# what inspect_bin decodes from each bin of gen_test_captures: (sample rate,
+# [(fmt, mcs)]); one chain of the 2x2 capture holds no SISO packet
+EXAMPLE_BINS = {
+    "sig80211GenMultipleSiso_1x1_0.bin": (20e6, [(F.L, 7), (F.HT, 7),
+                                                 (F.VHT, 7)]),
+    "sig80211GenMultipleMimo_2x2_0.bin": (20e6, []),
+    "sig80211GenMultipleMimo_2x2_1.bin": (20e6, []),
+    "sig80211GenBeacon_1x1_0.bin": (20e6, [(F.L, 0)]),
+    "sig80211GenWideband_40MHz.bin": (40e6, [(F.VHT, 7)]),
+    "sig80211GenWideband_80MHz.bin": (80e6, [(F.VHT, 9)]),
+}
+
+
 def main() -> int:
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -723,6 +865,11 @@ def main() -> int:
     w0, w1 = (torch.from_numpy(a).to(dev)
               for a in coding._radix_tables(coding.RADIX))
     mu_mod, mu_bucket, mu_rows, mu_sigb_len, mu_data_len = mu_stream_shapes()
+    t = time.perf_counter()
+    sweep_calls = sweep_kernel_inputs(dev)
+    torch.cuda.synchronize()
+    print(f"acceptance sweep's kernel inputs: {len(sweep_calls)} points "
+          f"recorded in {time.perf_counter() - t:.2f} s")
 
     # -- 3. Viterbi kernel vs plain ------------------------------------------
     vit_err = 0
@@ -770,6 +917,25 @@ def main() -> int:
         print(f"viterbi {name} [{batch} x {n_bits} {cr.name}]: kernel == "
               f"plain == encoder bits")
         vit_inputs[name] = (x, cr, n_bits)
+    # what the acceptance sweep handed the kernel, as it was: L-SIG, SIG and
+    # DATA pairs [100 x T, 2] of every recorded row and point
+    with torch.inference_mode():
+        for name, snr, calls in sweep_calls:
+            shapes = []
+            for kind, args in calls:
+                if kind != "viterbi":
+                    continue
+                lp, w0_, w1_, renorm = args
+                got = kv.viterbi_pairs_cuda(lp, w0_, w1_, renorm)
+                ref = coding.viterbi_pairs_plain(lp, w0_, w1_, renorm)
+                torch.cuda.synchronize()
+                vit_err = max(vit_err, int((got - ref).abs().max()))
+                check(torch.equal(got, ref), f"viterbi kernel == plain "
+                                             f"({name} at {snr:.0f} dB)")
+                shapes.append(f"{lp.shape[0]} x {lp.shape[1]}")
+            check(bool(shapes), f"{name}: the sweep launched the Viterbi")
+            print(f"viterbi sweep {name} at {snr:.0f} dB, pairs "
+                  f"[{'], ['.join(shapes)}]: kernel == plain")
 
     # -- 4. slice kernel vs plain --------------------------------------------
     slice_err = 0.0
@@ -788,6 +954,25 @@ def main() -> int:
         check(torch.equal(got, ref), f"slice kernel == plain ({b}, {n}, "
                                      f"{length})")
         print(f"slice [{b} x {n} -> {length}]: kernel == plain")
+    # the windows the acceptance sweep cut, as it cut them: per chain at
+    # 20, 40 and 80 MHz
+    for name, snr, calls in sweep_calls:
+        shapes = []
+        for kind, args in calls:
+            if kind != "slice":
+                continue
+            x2, st, length = args
+            got = kg.batch_slice_iq_cuda(x2, st, length)
+            ref = sync.batch_slice_iq_plain(x2, st, length)
+            torch.cuda.synchronize()
+            slice_err = max(slice_err, float((got - ref).abs().max()))
+            check(torch.equal(got, ref), f"slice kernel == plain ({name} at "
+                                         f"{snr:.0f} dB)")
+            shapes.append(f"{x2.shape[0]} x {x2.shape[1]} -> {length}")
+        check(bool(shapes), f"{name}: the sweep launched the slice")
+        print(f"slice sweep {name} at {snr:.0f} dB [{'], ['.join(shapes)}]: "
+              f"kernel == plain")
+    del sweep_calls
 
     # -- 5./6. the main path -------------------------------------------------
     rows = {}
@@ -1390,7 +1575,153 @@ def main() -> int:
           f"CPU run), BFQ, MU request; each station's data records "
           f"byte-identical to the CPU run; launches {got}")
 
-    # -- 25. the kernels line ------------------------------------------------
+    # -- 25. the acceptance sweep, cut ---------------------------------------
+    def quiet(msg):
+        del msg
+
+    acc_pkts, acc_wall, curves = 0, 0.0, {}
+    for group, build_fn, pipe_cls, (fmt, mcs), chan, top in acceptance_rows():
+        name = f"{group}/{fmt.name}{mcs}"
+        reset()
+        t = time.perf_counter()
+        curve = acc._sweep_curves(build_fn, pipe_cls, [(fmt, mcs)],
+                                  [0.0, top], ACC_NPKT, ACC_PAYLOAD, 0,
+                                  quiet, chan=chan, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = read(launches)
+        curves[name] = curve = curve[f"{fmt.name}{mcs}"]
+        acc_pkts += 2 * ACC_NPKT
+        acc_wall += dt
+        check(got["viterbi"] > 0 and got["slice"] > 0,
+              f"acceptance {name}: Viterbi and slice launches {got}")
+        # one more point of the row alone: its implicit syncs, its wall
+        # time and its packed step's time
+        row = pdr._prepare_row(build_fn, pipe_cls, fmt, mcs, ACC_NPKT,
+                               ACC_PAYLOAD, 0, chan, dev)
+        gen = pdr.noise_generator(1, dev)
+        _, implicit = counted(lambda: row.n_ok(gen, pdr.noise_amp_at(top)))
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            row.n_ok(gen, pdr.noise_amp_at(top))
+            walls.append((time.perf_counter() - t) * 1e3)
+        step_ms = cuda_ms(lambda: row.packed(gen, pdr.noise_amp_at(top)))
+        print(f"acceptance {name} [{ACC_NPKT} x "
+              f"{'x'.join(map(str, row.xd.shape[1:]))}]: PDR {curve[0]} at "
+              f"0 dB, {curve[1]} at {top:.0f} dB; launches {got}; {dt:.4f} s "
+              f"for 2 points; one point {np.median(walls):.4f} ms of wall "
+              f"time (median of 3), its packed step {step_ms:.4f} ms (CUDA "
+              f"events); implicit syncs per point {implicit} {tag}")
+        check(implicit == 0, f"acceptance {name}: {implicit} implicit syncs")
+        if group != "siso_fading_80_unweighted_llr":
+            check(curve[1] == 1.0, f"acceptance {name}: PDR 1.0 at {top} dB")
+    unw = curves["siso_fading_80_unweighted_llr/VHT7"]
+    check(all(u <= w for u, w in zip(unw, curves["siso_fading_80/VHT7"])),
+          "acceptance: unweighted VHT7 @80 no higher than weighted")
+    reset()
+    t = time.perf_counter()
+    mu_curve = acc._mu_curves([0.0, 30.0], ACC_NPKT, ACC_PAYLOAD, 0, quiet,
+                              mcs_list=(4,), device=dev)["MU_VHT4x2"]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    got = read(launches)
+    acc_pkts += 2 * 2 * ACC_NPKT
+    acc_wall += dt
+    h_mu, q_mu = acc._mu_sounding(0, 2, dev)
+    mu_rows = acc._mu_rows(4, 2, h_mu, q_mu, ACC_NPKT, ACC_PAYLOAD, 0, dev)
+    gen = pdr.noise_generator(1, dev)
+    _, implicit = counted(lambda: mu_rows[0].n_ok(
+        gen, pdr.noise_amp_at(30.0)))
+    print(f"acceptance mu_2user/MU_VHT4x2 [2 stations x {ACC_NPKT}]: PDR "
+          f"{mu_curve[0]} at 0 dB, {mu_curve[1]} at 30 dB; launches {got}; "
+          f"{dt:.4f} s for 2 points (sounding included); implicit syncs per "
+          f"point {implicit} {tag}")
+    check(mu_curve[1] == 1.0 and got["viterbi"] > 0 and got["slice"] > 0
+          and implicit == 0, "acceptance mu_2user: PDR 1.0 at 30 dB, "
+                             "launches, no implicit sync")
+    print(f"time acceptance cut: {acc_pkts} packets in {acc_wall:.4f} s of "
+          f"sweep, {acc_pkts / acc_wall:.6g} packets/s {tag}")
+    # one numpy noise batch at 30 dB: the card's bytes == the CPU run's
+    for build_fn, pipe_cls, (fmt, mcs) in (
+            (pdr._build_packet, RxPipeline, (F.VHT, 7)),
+            (pdr._build_mimo_packet, pdr.MimoRxPipeline, (F.HT, 8))):
+        mod, pp, mpdu, wave = build_fn(fmt, mcs, ACC_PAYLOAD, 0)
+        card, cpu = [], torch.device("cpu")
+        for d in (dev, cpu):
+            pipe = pipe_cls(mod, pp.n_sym, pp.psdu_len, device=d)
+            x2 = pdr.noisy_batch(pdr.rx_window(wave, pipe.window_len()),
+                                 ACC_NPKT, 30.0, 21)
+            row = pdr._Row(pipe, torch.from_numpy(x2).to(d), mpdu,
+                           fmt == F.VHT)
+            card.append(pdr._fetch(row.packed(pdr.noise_generator(0, d),
+                                              0.0)))
+        n_ok = pdr._count_ok(card[0], pp.psdu_len, mpdu, fmt == F.VHT)
+        check(np.array_equal(card[0], card[1]) and n_ok == ACC_NPKT,
+              f"acceptance {fmt.name}{mcs} at 30 dB: card bytes == CPU run")
+        print(f"acceptance {fmt.name}{mcs} ({pipe_cls.__name__}), one numpy "
+              f"noise batch at 30 dB: {n_ok}/{ACC_NPKT} packets, bytes "
+              f"[{ACC_NPKT} x {card[0].shape[1]}] on the card == the CPU "
+              f"run's")
+    # the ML detector's peak memory at its largest sweep shape
+    row = pdr._prepare_row(pdr._build_mimo_packet_bw(BW.BW80),
+                           pdr.MimoRxPipeline, F.VHT, 9, ACC_NPKT,
+                           ACC_PAYLOAD, 0, None, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    n_ok = row.n_ok(pdr.noise_generator(0, dev), pdr.noise_amp_at(36.0))
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+    check(n_ok == ACC_NPKT, f"2x2 VHT9 80 MHz at 36 dB: {n_ok}/{ACC_NPKT}")
+    print(f"acceptance 2x2 VHT9 80 MHz ML [{ACC_NPKT} x "
+          f"{'x'.join(map(str, row.xd.shape[1:]))}]: {n_ok}/{ACC_NPKT} at "
+          f"36 dB, peak device memory {peak:.1f} MiB above the batch {tag}")
+    del row, mu_rows
+
+    # -- 26. the examples on the card ----------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = gen_test_captures.main(tmp)
+        for path in paths:
+            fs, want = EXAMPLE_BINS[os.path.basename(path)]
+            reset()
+            res = inspect_bin.main(path, fs, device=dev)
+            torch.cuda.synchronize()
+            got = read(launches)
+            check([(r.fmt, r.mcs) for r in res] == want
+                  and all(r.fcs_ok for r in res),
+                  f"inspect_bin {os.path.basename(path)}: {want}, good FCS")
+        res = MimoReceiver(device=dev).decode_capture(np.stack(
+            [load_complex_bin(p) for p in paths if "Mimo" in p]))
+        check([(r.fmt, r.mcs, r.fcs_ok) for r in res] == [(F.HT, 8, True)],
+              "the generated 2x2 capture decodes on both chains")
+    print(f"examples: gen_test_captures wrote {len(paths)} bins; inspect_bin "
+          f"decoded every packet of them with a good FCS on the card (the "
+          f"2x2 pair through MimoReceiver)")
+    for dual in (False, True):
+        reset()
+        results = stream_decode.main(dual, device=dev)
+        torch.cuda.synchronize()
+        got = read(launches)
+        mode = "slice_multi" if dual else "slice_shared"
+        per = stream_decode.N_SEG * 30
+        check(all(len(r) == per and all(p.fcs_ok for p in r)
+                  and sum(p.mu for p in r) == per // 3 for r in results)
+              and got[mode] > 0 and got["viterbi"] > 0,
+              f"stream_decode (dual={dual}): every packet, MU included; "
+              f"launches {got}")
+        print(f"stream_decode{' --dual' if dual else ''}: {len(results)} x "
+              f"{per}/{per} packets ({per // 3} MU each) with a good FCS; "
+              f"launches {got}")
+    reset()
+    decoded = mu_sounding_demo.main(device=dev)
+    got = read(launches)
+    check(decoded == [[p] for p in mu_sounding_demo.PAYLOADS]
+          and got["viterbi"] > 0,
+          "mu_sounding_demo: each station prints its own payload")
+    print(f"mu_sounding_demo: both stations decode their own payload; "
+          f"launches {got}")
+
+    # -- 27. the kernels line ------------------------------------------------
     def entry(name, source, replaces, key, err, t):
         return {"name": name, "route": "cuda",
                 "source": f"ieee80211_tpu_torch/csrc/{source}",

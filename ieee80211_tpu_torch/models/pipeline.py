@@ -105,13 +105,16 @@ class RxStep(nn.Module):
     forward(x2: [B, W, 2] float32 I/Q, t0: [B] int32) -> dict with
     bits [B, n_bits] int32 descrambled data bits, ltf_start [B] int32,
     cfo [B] float32, snr [B] float32, lsig_ok [B] bool: the keys and dtypes
-    of the JAX step.
+    of the JAX step. csi_weight: per-tone |H|^2 LLR weighting
+    (`demod.demod_data_siso`); False gives the reference's unweighted
+    demap.
     """
 
-    def __init__(self, mod: Mod, n_sym: int):
+    def __init__(self, mod: Mod, n_sym: int, csi_weight: bool = True):
         super().__init__()
         self.mod = mod
         self.n_sym = n_sym
+        self.csi_weight = csi_weight
         self.q = tables.NFFT[mod.bw] // 64
         for name, arr in tables_from_numpy(mod, n_sym).items():
             self.register_buffer(name, torch.from_numpy(arr))
@@ -177,7 +180,8 @@ class RxStep(nn.Module):
             z, gi + self.data_offset(), n_sym, nfft=nfft, gi=gi, shift=sh))
         llrs = demod.demod_data_siso(gd, chan, mod, self.pilot_ref,
                                      self.pilot_idx, self.data_idx,
-                                     self.rx_perm)
+                                     self.rx_perm,
+                                     csi_weight=self.csi_weight)
         bits = coding.viterbi_decode(llrs, mod.cr, n_sym * mod.nDBPS,
                                      self.vit_w0, self.vit_w1)
         scr = coding.descramble(bits, self.prbs, self.seed_inv)
@@ -188,15 +192,15 @@ class RxStep(nn.Module):
 class RxPipeline(nn.Module):
     """Fixed-config receiver: `step(x2, t0)` runs the receive step on the
     module's device: the card unless `device="cpu"` asks for the CPU
-    (without a card, the default raises)."""
+    (without a card, the default raises). csi_weight as in `RxStep`."""
 
-    def __init__(self, mod: Mod, n_sym: int, psdu_len: int,
-                 device=None):
+    def __init__(self, mod: Mod, n_sym: int, psdu_len: int, *,
+                 csi_weight: bool = True, device=None):
         super().__init__()
         self.mod = mod
         self.n_sym = n_sym
         self.psdu_len = psdu_len
-        self.step = RxStep(mod, n_sym).to(entry_device(device))
+        self.step = RxStep(mod, n_sym, csi_weight).to(entry_device(device))
 
     def window_len(self) -> int:
         base = 192 + 128 + 80  # sync slack + LTF + L-SIG

@@ -363,9 +363,10 @@ def ml_detect_llr_2x2(gd: torch.Tensor, h: torch.Tensor, mod: M,
 # ---------------------------------------------------------------------------
 
 
-def _demod_data_tail(eq: torch.Tensor, weight_grid: torch.Tensor, mod: Mod,
-                     pilot_ref: torch.Tensor, pilot_bins: torch.Tensor,
-                     data_bins: torch.Tensor, perm: torch.Tensor,
+def _demod_data_tail(eq: torch.Tensor, weight_grid: Optional[torch.Tensor],
+                     mod: Mod, pilot_ref: torch.Tensor,
+                     pilot_bins: torch.Tensor, data_bins: torch.Tensor,
+                     perm: torch.Tensor,
                      with_snr: bool = False,
                      n_valid_sym: Optional[torch.Tensor] = None):
     """Post-equalization tail: pilot phase track + demap + per-tone CSI
@@ -375,7 +376,8 @@ def _demod_data_tail(eq: torch.Tensor, weight_grid: torch.Tensor, mod: Mod,
     per-tone noise-inverse weight (|H|^2 for ZF SISO): ZF inflates the noise
     on faded tones by 1/|H|^2, and scaling each tone's LLRs by its weight
     restores the max-log metric (uniform, so decisions unchanged, on a flat
-    channel). Tables: pilot_ref `pilot_refs(...)` [n_sym, nSP], pilot_bins /
+    channel); None leaves the LLRs unweighted (the reference's demap).
+    Tables: pilot_ref `pilot_refs(...)` [n_sym, nSP], pilot_bins /
     data_bins `tables.PILOT_GRID` / `DATA_GRID`, perm `rx_perm(mod, 0)`.
     n_valid_sym: [B] int32 true symbol counts when n_sym is a bucket's
     capacity: LLRs of later symbols are zeroed (path-neutral in the Viterbi)
@@ -387,10 +389,11 @@ def _demod_data_tail(eq: torch.Tensor, weight_grid: torch.Tensor, mod: Mod,
     eq = eq / ph[..., None]
     data = eq[..., data_bins]                             # [B, S, nSD]
     llr = demap_llr(data, mod.mod)                        # [B, S, nCBPSS]
-    w = weight_grid[..., data_bins]
-    w = w / torch.clamp_min(torch.mean(w, dim=-1, keepdim=True), 1e-12)
-    nb = llr.shape[-1] // data.shape[-1]
-    llr = llr * torch.repeat_interleave(w, nb, dim=-1)[:, None, :]
+    if weight_grid is not None:
+        w = weight_grid[..., data_bins]
+        w = w / torch.clamp_min(torch.mean(w, dim=-1, keepdim=True), 1e-12)
+        nb = llr.shape[-1] // data.shape[-1]
+        llr = llr * torch.repeat_interleave(w, nb, dim=-1)[:, None, :]
     out = llr[..., perm]                                  # [B, S, nCBPSS]
     mask = None
     if n_valid_sym is not None:
@@ -408,17 +411,21 @@ def demod_data_siso(sym_grids: torch.Tensor, chan: torch.Tensor, mod: Mod,
                     pilot_ref: torch.Tensor, pilot_bins: torch.Tensor,
                     data_bins: torch.Tensor, perm: torch.Tensor,
                     with_snr: bool = False,
-                    n_valid_sym: Optional[torch.Tensor] = None):
-    """Equalize + track + demap (CSI-weighted) + deinterleave the DATA field.
+                    n_valid_sym: Optional[torch.Tensor] = None,
+                    csi_weight: bool = True):
+    """Equalize + track + demap + deinterleave the DATA field.
 
     sym_grids: [B, n_sym, nfft] raw FFT grids; chan: [B, nfft]. Returns
     LLRs in coded-bit order [B, n_sym * nCBPSS] (and the EVM SNR [B] with
-    with_snr); n_valid_sym as in `_demod_data_tail`.
+    with_snr); n_valid_sym as in `_demod_data_tail`. csi_weight scales each
+    tone's LLRs by |H|^2 (same decisions on a flat channel, multipath
+    robustness on a frequency-selective one); False is the reference's
+    unweighted demap.
     """
     eq = equalize(sym_grids, chan)
-    return _demod_data_tail(eq, torch.abs(chan) ** 2, mod, pilot_ref,
-                            pilot_bins, data_bins, perm, with_snr,
-                            n_valid_sym)
+    wg = torch.abs(chan) ** 2 if csi_weight else None
+    return _demod_data_tail(eq, wg, mod, pilot_ref, pilot_bins, data_bins,
+                            perm, with_snr, n_valid_sym)
 
 
 def mrc_combine(grids: torch.Tensor, chan: torch.Tensor) -> torch.Tensor:

@@ -200,3 +200,69 @@ def test_demod_data_siso_n_valid_close(mod):
     np.testing.assert_allclose(evm.numpy(), np.asarray(ref_evm), rtol=0,
                                atol=EVM_TOL)
     assert (evm.numpy() > 25).all()
+
+
+def _multipath(rng, shape, n):
+    """Frequency responses [*shape, n] of random 9-tap channels (a direct
+    path and decaying complex reflections), on the centred FFT grid."""
+    taps = _cplx(rng, shape + (9,)) * (0.6 ** np.arange(9))
+    taps[..., 0] += 1.0
+    return np.fft.fftshift(np.fft.fft(taps, n, axis=-1), axes=-1).astype(
+        np.complex64)
+
+
+def _tables(mod, n_sym):
+    pidx0 = {F.L: 1, F.HT: 3, F.VHT: 4}[mod.fmt]
+    key = (mod.bw, mod.fmt == F.L)
+    return pidx0, (
+        torch.from_numpy(demod.pilot_refs(port_mod(mod), n_sym, pidx0)
+                         .astype(np.float32)),
+        torch.from_numpy(tables.PILOT_GRID[key].astype(np.int64)),
+        torch.from_numpy(tables.DATA_GRID[key].astype(np.int64)),
+        torch.from_numpy(ilv.rx_perm(mod, 0)))
+
+
+def _multipath_grids(rng, mod, n_sym, batch):
+    """Noisy constellation points with the packet's pilots through random
+    multipath channels: (grids [batch, n_sym, nfft], chan [batch, nfft])."""
+    n = tables.NFFT[mod.bw]
+    key = (mod.bw, mod.fmt == F.L)
+    pidx0 = {F.L: 1, F.HT: 3, F.VHT: 4}[mod.fmt]
+    eq = np.zeros((batch, n_sym, n), np.complex64)
+    eq[..., tables.DATA_GRID[key]] = _points(rng, mod.mod,
+                                             (batch, n_sym, mod.nSD))
+    eq[..., tables.PILOT_GRID[key]] = demod.pilot_refs(port_mod(mod), n_sym,
+                                                       pidx0)
+    chan = _multipath(rng, (batch,), n)
+    grids = (chan[..., None, :] * eq
+             + 0.05 * _cplx(rng, (batch, n_sym, n))).astype(np.complex64)
+    return grids, chan
+
+
+@pytest.mark.parametrize("mod", [Mod(F.VHT, 7), Mod(F.L, 5), Mod(F.HT, 3),
+                                 Mod(F.VHT, 7, BW.BW80, 1), Mod(F.VHT, 4),
+                                 Mod(F.L, 3), Mod(F.VHT, 9, BW.BW40, 1)])
+def test_demod_data_siso_unweighted_close(mod):
+    """csi_weight=False (the reference's unweighted demap) on multipath
+    grids, with the EVM SNR and a bucket of 4 symbols holding packets of 4,
+    2 and 1: LLRs and EVM of both packages within LLR_RTOL / EVM_TOL, the
+    LLRs past each packet's end zero, and unlike the weighted ones."""
+    n_sym = 4
+    rng = np.random.default_rng(tables.NFFT[mod.bw] + mod.mcs + 21)
+    grids, chan = _multipath_grids(rng, mod, n_sym, 3)
+    nv = np.array([4, 2, 1], np.int32)
+    pidx0, tabs = _tables(mod, n_sym)
+    ref_llr, ref_evm = jdemod.demod_data_siso(
+        jnp.asarray(grids), jnp.asarray(chan), mod, n_sym, pidx0,
+        with_snr=True, n_valid_sym=jnp.asarray(nv), csi_weight=False)
+    args = (torch.from_numpy(grids), torch.from_numpy(chan), port_mod(mod),
+            *tabs)
+    kw = dict(with_snr=True, n_valid_sym=torch.from_numpy(nv))
+    llr, evm = demod.demod_data_siso(*args, **kw, csi_weight=False)
+    _close(llr.numpy(), ref_llr, LLR_RTOL)
+    np.testing.assert_allclose(evm.numpy(), np.asarray(ref_evm), rtol=0,
+                               atol=EVM_TOL)
+    per = llr.numpy().reshape(3, n_sym, -1)
+    assert not per[1, 2:].any() and not per[2, 1:].any()
+    weighted, _ = demod.demod_data_siso(*args, **kw)
+    assert not np.allclose(weighted.numpy(), llr.numpy(), rtol=0.1)

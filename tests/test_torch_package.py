@@ -135,7 +135,14 @@ def test_import_never_loads_jax(import_probe):
             "ieee80211_tpu_torch.mu.feedback",
             "ieee80211_tpu_torch.mac.bf_report",
             "ieee80211_tpu_torch.api.descriptors",
-            "ieee80211_tpu_torch.api.service"} <= set(
+            "ieee80211_tpu_torch.api.service",
+            "ieee80211_tpu_torch.perf.pdr",
+            "ieee80211_tpu_torch.perf.acceptance",
+            "ieee80211_tpu_torch.utils.binio",
+            "ieee80211_tpu_torch.examples.gen_test_captures",
+            "ieee80211_tpu_torch.examples.inspect_bin",
+            "ieee80211_tpu_torch.examples.stream_decode",
+            "ieee80211_tpu_torch.examples.mu_sounding_demo"} <= set(
                 import_probe["modules"])
     assert import_probe["jax"] == []
 
@@ -230,18 +237,31 @@ def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def _slice_entry_points():
-    """The entry points of the TX, MU and API slice, each built without a
-    device argument (so on the card), and with `device`."""
+def _slice_entry_points(tmp_path=None):
+    """The entry points of the TX, MU and API slice and of the PDR harness
+    and examples, each built without a device argument (so on the card),
+    and with `device`. The harness's run at a tiny size (the acceptance
+    sweep with every group off); inspect_bin decodes a file of silence in
+    tmp_path."""
     from ieee80211_tpu_torch.api import PhyService
+    from ieee80211_tpu_torch.examples import (inspect_bin, mu_sounding_demo,
+                                              stream_decode)
     from ieee80211_tpu_torch.mu import sounding
+    from ieee80211_tpu_torch.perf import (acceptance, mimo_pdr_sweep, pdr,
+                                          pdr_sweep)
     from ieee80211_tpu_torch.rx import MimoReceiver, SisoReceiver
     from ieee80211_tpu_torch.specs.modulation import ppdu_params_aggregate
     from ieee80211_tpu_torch.tx import (MuTxPipeline, TxPipeline,
                                         get_tx_pipeline)
+    from ieee80211_tpu_torch.utils import save_complex_bin
     mod = port_mod(Mod(F.VHT, 4))
     pp = ppdu_params_aggregate(mod, 100)
     silence = np.zeros(4000, np.complex64)
+    bin_path = None
+    if tmp_path is not None:
+        bin_path = str(tmp_path / "silence.bin")
+        save_complex_bin(bin_path, silence)
+    mod2 = port_mod(Mod(F.HT, 9, BW.BW20, 2))
     return {
         "TxPipeline": lambda **kw: TxPipeline(mod, pp, **kw),
         "MuTxPipeline": lambda **kw: MuTxPipeline([mod, mod], [100, 60],
@@ -261,12 +281,37 @@ def _slice_entry_points():
         "SisoReceiver(mu_gid)": lambda **kw: SisoReceiver(mu_gid=2, **kw),
         "MimoReceiver(mu_gid)": lambda **kw: MimoReceiver(mu_gid=2, **kw),
         "PhyService": lambda **kw: PhyService(**kw),
+        "pdr_sweep": lambda **kw: pdr_sweep(F.L, [0], [30.0], 2, 30, **kw),
+        "mimo_pdr_sweep": lambda **kw: mimo_pdr_sweep(F.HT, [8], [30.0], 2,
+                                                      30, **kw),
+        "MimoRxPipeline": lambda **kw: pdr.MimoRxPipeline(mod2, 10, 100,
+                                                          **kw),
+        "run_acceptance": lambda **kw: acceptance.run_acceptance(
+            siso=False, mimo=False, wideband=False, mu=False, quiet=True,
+            **kw),
+        "inspect_bin.main": lambda **kw: inspect_bin.main(bin_path, **kw),
+        "stream_decode.main": lambda **kw: stream_decode.main(
+            True, n_caps=1, reps=1, **kw),
+        "mu_sounding_demo.main": lambda **kw: mu_sounding_demo.main(**kw),
     }
 
 
+# what the harness's and examples' entry points return on the CPU
+_CPU_RESULTS = {
+    "pdr_sweep": lambda out: out == {0: [1.0]},
+    "mimo_pdr_sweep": lambda out: out == {8: [1.0]},
+    "run_acceptance": lambda out: (out["device"]["device"] == "cpu"
+                                   and out["curves"] == {}),
+    "stream_decode.main": lambda out: (
+        [len(r) for r in out] == [6] and all(p.fcs_ok for p in out[0])),
+    "mu_sounding_demo.main": lambda out: len(out) == 2 and all(
+        len(d) == 1 for d in out),
+}
+
+
 @pytest.mark.parametrize("name", list(_slice_entry_points()))
-def test_slice_entry_points_need_a_card(monkeypatch, name):
-    build = _slice_entry_points()[name]
+def test_slice_entry_points_need_a_card(monkeypatch, tmp_path, name):
+    build = _slice_entry_points(tmp_path)[name]
     _no_card(monkeypatch)
     for kw in ({}, {"device": "cuda"}):
         with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -274,11 +319,14 @@ def test_slice_entry_points_need_a_card(monkeypatch, name):
 
 
 @pytest.mark.parametrize("name", list(_slice_entry_points()))
-def test_slice_entry_points_run_on_the_cpu_when_asked(monkeypatch, name):
+def test_slice_entry_points_run_on_the_cpu_when_asked(monkeypatch, tmp_path,
+                                                      name):
     _no_card(monkeypatch)
-    out = _slice_entry_points()[name](device="cpu")
+    out = _slice_entry_points(tmp_path)[name](device="cpu")
     cpu = torch.device("cpu")
-    if isinstance(out, torch.nn.Module):
+    if name in _CPU_RESULTS:
+        assert _CPU_RESULTS[name](out)
+    elif isinstance(out, torch.nn.Module):
         assert {b.device for b in out.buffers()} == {cpu}
     elif hasattr(out, "siso_rx"):
         assert out.siso_rx.device == out.mimo_rx.device == cpu

@@ -7,7 +7,9 @@ good FCS.
 Configs: bench.py's headline input (VHT MCS7 20 MHz), the driver entry's
 example batch (L MCS7), and VHT MCS7 at 40 and 80 MHz as in
 tests/test_wideband_rx.py. The JAX CPU step decodes at radix 3 and the
-port at radix 4: on these noiseless packets both give the true bits.
+port at radix 4: on these noiseless packets both give the true bits. The
+unweighted demap (csi_weight=False) is held to JAX's on the same packets
+through a two-path channel at 30 dB SNR, the port at radix 3 there.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +26,7 @@ from ieee80211_tpu.specs.modulation import ppdu_params_aggregate
 from ieee80211_tpu.tx import finalize, gen_ampdu
 from ieee80211_tpu_torch.models import RxPipeline
 from ieee80211_tpu_torch.utils import c2r
-from torch_parity import mpdu_decoded, port_mod
+from torch_parity import add_noise, mpdu_decoded, port_mod, radix_tensors
 
 CFO_TOL = 1e-6   # rad/sample: float32 rounding of the angle sums
 SNR_TOL = 1e-3   # dB (noiseless packets sit at the 60 dB clamp)
@@ -99,3 +101,33 @@ def test_chip_smoke_input_is_bench_input():
     np.testing.assert_array_equal(x_s, x)
     np.testing.assert_array_equal(t0_s, t0)
     assert mpdu_s == mpdu
+
+
+@pytest.mark.parametrize("make", [_bench, lambda: _wideband(BW.BW80)],
+                         ids=["bench_vht7_20", "vht7_80"])
+def test_unweighted_rx_step_matches_jax(make):
+    """RxPipeline(csi_weight=False) against JAX's on packets through a
+    two-path channel (a 0.4 echo 4q samples late) with white noise at
+    30 dB: bits, ltf_start and lsig_ok identical, every packet decodes."""
+    jpipe, x, t0, mpdu = make()
+    q = {BW.BW20: 1, BW.BW40: 2, BW.BW80: 4}[jpipe.mod.bw]
+    xc = x[..., 0] + 1j * x[..., 1]
+    echo = np.zeros_like(xc)
+    echo[:, 4 * q:] = 0.4j * xc[:, :-4 * q]
+    xc = add_noise(xc + echo, 30.0, seed=q)
+    x = np.stack([xc.real, xc.imag], -1).astype(np.float32)
+    jref = JaxRxPipeline(jpipe.mod, jpipe.n_sym, jpipe.psdu_len,
+                         csi_weight=False)
+    ref = {k: np.asarray(v) for k, v in
+           jref.step(jnp.asarray(x), jnp.asarray(t0)).items()}
+    pipe = RxPipeline(port_mod(jpipe.mod), jpipe.n_sym, jpipe.psdu_len,
+                      csi_weight=False, device="cpu")
+    assert pipe.step.csi_weight is False
+    pipe.step.vit_w0, pipe.step.vit_w1 = radix_tensors(3)
+    with torch.inference_mode():
+        out = {k: v.numpy() for k, v in pipe.step(
+            torch.from_numpy(x), torch.from_numpy(t0)).items()}
+    for k in ("bits", "ltf_start", "lsig_ok"):
+        np.testing.assert_array_equal(out[k], ref[k])
+    for row in out["bits"]:
+        assert mpdu_decoded(row, pipe.psdu_len, mpdu, pipe.mod.fmt)

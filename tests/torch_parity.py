@@ -120,3 +120,53 @@ def assert_same_packets_all(got, ref):
         assert abs(g.snr_db - r.snr_db) <= snr_tol_db(r.snr_db)
         assert abs(g.evm_snr_db - r.evm_snr_db) <= EVM_TOL
         np.testing.assert_allclose(g.sssnr, r.sssnr, rtol=0, atol=EVM_TOL)
+
+
+def radix3(module):
+    """Hand every Viterbi decode inside `module` the radix-3 tables, with
+    which the port's plain decoder reproduces the JAX CPU decoder."""
+    w0, w1 = radix_tensors(3)
+    for m in module.modules():
+        if hasattr(m, "vit_w0"):
+            m.vit_w0, m.vit_w1 = w0, w1
+    return module
+
+
+def packed_both(jstep, pipe, x2):
+    """The PDR harness's packed-byte step (perf/acceptance.py
+    `_packed_step`) of both packages on the same batch x2, each with its
+    own noise scaled to 0: (JAX bytes, port bytes), uint8 [B, n_bits // 8].
+    jstep is the JAX pipeline's step function, pipe the port's pipeline on
+    the CPU."""
+    import jax
+    import jax.numpy as jnp
+    from ieee80211_tpu.perf.acceptance import _packed_step as jax_packed
+    from ieee80211_tpu_torch.perf.pdr import _packed_step, noise_generator
+    b = x2.shape[0]
+    ref = np.asarray(jax_packed(jstep)(jnp.asarray(x2),
+                                       jnp.zeros(b, jnp.int32),
+                                       jax.random.PRNGKey(0),
+                                       jnp.float32(0.0)))
+    got = _packed_step(pipe.step)(torch.from_numpy(x2),
+                                  torch.zeros(b, dtype=torch.int32),
+                                  noise_generator(0, torch.device("cpu")),
+                                  0.0)
+    return ref, got.numpy()
+
+
+def assert_packed_parity(ref, got, ok_of, waterfall: bool, what: str):
+    """Bytes equal (a high-SNR batch), or at a waterfall SNR ok-counts
+    within 1 packet: LLRs differ by float32 rounding between the packages
+    there, and a near-tie path can flip. ok_of(bytes) counts the rows that
+    carry the MPDU."""
+    assert ref.shape == got.shape and ref.dtype == got.dtype == np.uint8
+    n_diff = int(np.sum(np.any(ref != got, axis=1)))
+    ok_ref, ok_got = ok_of(ref), ok_of(got)
+    print(f"{what}: {n_diff}/{len(ref)} rows differ; ok {ok_got} (port) "
+          f"vs {ok_ref} (JAX)")
+    if waterfall:
+        assert 0 < ok_ref < len(ref), "SNR is not on the waterfall"
+        assert abs(ok_got - ok_ref) <= 1
+    else:
+        np.testing.assert_array_equal(got, ref)
+        assert ok_got > 0
