@@ -9,7 +9,8 @@ Phases, in order; any failed check raises and the exit code is non-zero:
   2. build of every CUDA kernel from ieee80211_tpu_torch/csrc/ with nvcc;
   3. the Viterbi kernel against its plain PyTorch version on the card, bit
      for bit, and against the encoder's input bits, at the shapes of the
-     receive step and of the streaming receiver; then, bit for bit, on the
+     receive step and of the streaming receiver, and on 64 rows of NaN,
+     +-inf and huge LLRs (a junk window's); then, bit for bit, on the
      inputs that the PDR acceptance sweep (phase 25) handed it, recorded as
      they launched, at 0 dB and at the top SNR of rows with its longest
      DATA fields, every bandwidth, MRC, 2x2 and a 4-user MU station
@@ -94,7 +95,29 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      (every packet with a good FCS, the 2x2 pair through MimoReceiver),
      stream_decode SISO and --dual (every packet, MU included; shared-source
      and multi-chain slice launches), mu_sounding_demo (each station its
-     own payload).
+     own payload);
+ 27. the mesh on one card (parallel/, a 1-rank NCCL group): `make_phy_mesh`
+     and `process_summary`; `sharded_frontend` against `stf_autocorr` on the
+     first stream capture of phase 12 with 30 dB of noise; `sharded_rx` and `multichip_step` on phase
+     5's 20 MHz batch give `RxPipeline.step`'s bits; `sharded_capture_decode`
+     on tests/test_sharded_capture.py's L MCS7 rows against SisoReceiver;
+ 28. `sharded_capture_decode_auto` on the first stream capture of phase 12
+     (1000 HT5 / VHT7 packets), with the branch loop and `generic=True`:
+     every packet's MPDUs equal `SisoReceiver.decode_capture`'s, no
+     overflow; per call samples/s (CUDA events, median of 5), launches,
+     implicit syncs, peak memory and the card's busy share, beside the
+     receiver's samples/s; every Viterbi and slice launch of the first call
+     recorded as it launched and held bit-equal to its plain version;
+ 29. `sharded_capture_decode_auto2` on the first dual-chain stream capture
+     of phase 17 (1440 packets) with `branch_cap=None` and 768: the same
+     checks and numbers against `MimoReceiver("auto")`;
+ 30. the loop's envelope: `__graft_entry__.dryrun_multichip`'s capture (L,
+     VHT A-MPDU, HT MCS12 2x2, an NDP whose LTFs give `ndp_ltf_channel`),
+     tests/test_sharded_dual.py's MU branch (with and without a branch
+     cap), tests/test_sharded_capture.py's 80 MHz case;
+ 31. `perf.scaling.measure_scaling()` on one rank: {1: samples/s} (N >= 2
+     cannot be measured on one card);
+ 32. the kernels line.
 The MU shapes (a SIG-B group of 26 bits, the MU stream's DATA bucket, and
 the MU window lengths of both capture-slice modes) join phases 3, 9 and 13.
 The line before the last is a JSON object of the kernels; the last line is
@@ -113,6 +136,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ieee80211_tpu_torch import native
 from ieee80211_tpu_torch.api import PhyService
@@ -120,7 +144,7 @@ from ieee80211_tpu_torch.api import descriptors as wire
 from ieee80211_tpu_torch.examples import (gen_test_captures, inspect_bin,
                                           mu_sounding_demo, stream_decode)
 from ieee80211_tpu_torch.mac import (MacConfig, aggregate_vht, build_udp_mpdu,
-                                     deaggregate_vht)
+                                     deaggregate_ht, deaggregate_vht)
 from ieee80211_tpu_torch.mu import (map_q_to_grid, ndp_ltf_channel,
                                     vht_channel_feedback, zf_q)
 from ieee80211_tpu_torch.mu import sounding
@@ -130,18 +154,29 @@ from ieee80211_tpu_torch.ops.cuda import build
 from ieee80211_tpu_torch.ops.cuda import gather as kg
 from ieee80211_tpu_torch.ops.cuda import vit_floor as kf
 from ieee80211_tpu_torch.ops.cuda import viterbi as kv
+from ieee80211_tpu_torch.parallel import (make_phy_mesh, multichip_step,
+                                          process_summary,
+                                          sharded_capture_decode,
+                                          sharded_frontend, sharded_rx)
+from ieee80211_tpu_torch.parallel.sharded import (
+    HALO, branch_window_len, sharded_capture_decode_auto,
+    sharded_capture_decode_auto2)
 from ieee80211_tpu_torch.perf import acceptance as acc
 from ieee80211_tpu_torch.perf import pdr, vit_floor
+from ieee80211_tpu_torch.perf.scaling import measure_scaling
 from ieee80211_tpu_torch.perf.timing import cuda_ms, device_ms, kernels_ms
 from ieee80211_tpu_torch.rx import (MimoDataDecoder, MimoReceiver,
-                                    SisoReceiver, get_mimo_decoder, receiver)
+                                    MrcDataDecoder, SisoReceiver,
+                                    get_mimo_decoder, receiver)
+from ieee80211_tpu_torch.rx.generic import GenericSisoDecoder
 from ieee80211_tpu_torch.specs import BW, CR, F, Mod
+from ieee80211_tpu_torch.specs.crc import fcs_ok
 from ieee80211_tpu_torch.specs.modulation import (ppdu_params_aggregate,
                                                   ppdu_params_nonaggregate)
 from ieee80211_tpu_torch.tx import (MuTxPipeline, TxPipeline, finalize,
                                     gen_ampdu, gen_ampdu_mu, gen_mpdu)
 from ieee80211_tpu_torch.tx.golden import bcc
-from ieee80211_tpu_torch.utils import c2r, load_complex_bin
+from ieee80211_tpu_torch.utils import c2r, load_complex_bin, r2c
 
 DEVICE = "cuda:0"
 # the least time of a kernel's work (bound_ms), from the H100 SXM's published
@@ -176,6 +211,16 @@ MU_GID = 2
 # float32 rounding (the CPU run is held to 2e-6 in tests/test_torch_tx.py)
 TX_TOL = 1e-5
 NDP_TOL = 1e-4     # a channel report's samples, card against CPU run
+# the sharded capture loop on one rank: the frontend's autocorrelation
+# against stf_autocorr of the whole capture (tests/test_parallel.py:37)
+AC_TOL = 1e-4
+# trigger slots of the loops: their capacity counts rises before the
+# min_gap dedup, and the stream captures rise twice per packet (L-STF, then
+# HT/VHT-STF 560 samples later): 2000 rises on the SISO capture, 2880 on
+# the dual-chain one (max over chains)
+LOOP_K, LOOP2_K = 2048, 3072
+LOOP2_CAP = 768    # per-branch windows with branch_cap (720 packets each)
+LOOP_ITERS = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -445,34 +490,28 @@ def mimo_stream_captures(reps: int = N_MIMO_REP):
     flat channel h1 alternating with VHT MCS4 2x2 A-MPDUs through h22, CFO
     uniform in +-40 kHz, 800 zeros before each; six captures of `reps`
     copies with 64 + 32k leading zeros. Returns (captures, packets per
-    capture)."""
+    capture, the segment's [(mod, mpdu)])."""
     cfg = MacConfig(subtype=8, seq=2704, **MAC)
     h1 = np.array([0.9 - 0.3j, 0.5 + 0.8j])
     h22 = np.array([[1.1 + 0.2j, 0.3 - 0.5j], [-0.4 + 0.6j, 0.9 + 0.1j]])
     rng = np.random.default_rng(15)
-    parts = []
+    parts, seg = [], []
     for i in range(N_MIMO_SEG):
         pl = bytes(rng.integers(0, 256, int(rng.integers(100, 700)),
                                 dtype=np.uint8))
         mp = build_udp_mpdu(pl, cfg)
-        if i % 2:
-            wv = finalize(gen_ampdu(aggregate_vht([mp]),
-                                    Mod(F.VHT, 4, BW.BW20, 2)).waveform,
-                          multiplier=0.2, cfo_hz=float(
-                              rng.uniform(-4e4, 4e4)), gap=False)
-            w2 = h22 @ wv
-        else:
-            wv = finalize(gen_ampdu(aggregate_vht([mp]),
-                                    Mod(F.VHT, 7)).waveform, multiplier=0.2,
-                          cfo_hz=float(rng.uniform(-4e4, 4e4)),
-                          gap=False)[0]
-            w2 = np.stack([h1[0] * wv, h1[1] * wv])
+        mod = Mod(F.VHT, 4, BW.BW20, 2) if i % 2 else Mod(F.VHT, 7)
+        wv = finalize(gen_ampdu(aggregate_vht([mp]), mod).waveform,
+                      multiplier=0.2, cfo_hz=float(rng.uniform(-4e4, 4e4)),
+                      gap=False)
+        w2 = h22 @ wv if i % 2 else np.stack([h1[0] * wv[0], h1[1] * wv[0]])
         parts.append(np.zeros((2, 800), np.complex64))
         parts.append(w2.astype(np.complex64))
+        seg.append((mod, mp))
     big = np.concatenate([np.concatenate(parts, axis=1)] * reps, axis=1)
     return ([np.concatenate([np.zeros((2, 64 + 32 * k), np.complex64), big],
                             axis=1) for k in range(N_STREAM)],
-            N_MIMO_SEG * reps)
+            N_MIMO_SEG * reps, seg)
 
 
 def counted(fn):
@@ -787,9 +826,11 @@ SWEEP_KERNEL_ROWS = [
 
 @contextlib.contextmanager
 def kernel_inputs():
-    """Record, cloned, the inputs of every Viterbi and per-row slice launch
-    made inside the block: yields a list that gets ("viterbi", (pairs, w0,
-    w1, renorm)) and ("slice", (x2, start, length)) in launch order."""
+    """Record, cloned, the inputs of every Viterbi and slice launch made
+    inside the block: yields a list that gets ("viterbi", (pairs, w0, w1,
+    renorm)), ("slice", (x2, start, length)) and, for the capture windows,
+    ("slice_shared" or "slice_multi", (capture, start, length)) in launch
+    order."""
     calls = []
     vit, sli = coding.viterbi_pairs_cuda, sync.batch_slice_iq_cuda
 
@@ -801,11 +842,78 @@ def kernel_inputs():
         calls.append(("slice", (x2.clone(), start.clone(), length)))
         return sli(x2, start, length)
 
+    def cut_rec(kind, kernel):
+        def rec(cap, start, length):
+            calls.append((kind, (cap.clone(), start.clone(), length)))
+            return kernel(cap, start, length)
+        return rec
+
+    shared = receiver.capture_slice_iq_cuda
+    multi = receiver.capture_slice_iq_mimo_cuda
     coding.viterbi_pairs_cuda, sync.batch_slice_iq_cuda = vit_rec, sli_rec
+    receiver.capture_slice_iq_cuda = cut_rec("slice_shared", shared)
+    receiver.capture_slice_iq_mimo_cuda = cut_rec("slice_multi", multi)
     try:
         yield calls
     finally:
         coding.viterbi_pairs_cuda, sync.batch_slice_iq_cuda = vit, sli
+        receiver.capture_slice_iq_cuda = shared
+        receiver.capture_slice_iq_mimo_cuda = multi
+
+
+# each recorded kind: its kernel's wrapper and its plain version
+RECORDED = {
+    "viterbi": (kv.viterbi_pairs_cuda, coding.viterbi_pairs_plain),
+    "slice": (kg.batch_slice_iq_cuda, sync.batch_slice_iq_plain),
+    "slice_shared": (kg.capture_slice_iq_cuda,
+                     receiver.capture_windows_plain),
+    "slice_multi": (kg.capture_slice_iq_mimo_cuda,
+                    receiver.capture_windows_mimo_plain),
+}
+
+
+def check_recorded(calls, what: str) -> dict:
+    """Every launch recorded by kernel_inputs() against its plain version on
+    the same inputs, bit for bit. Returns {kind: (launches, max |err|,
+    shapes)}."""
+    seen = {}
+    with torch.inference_mode():
+        for kind, args in calls:
+            kernel, plain = RECORDED[kind]
+            got, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max()) if got.numel() else 0.0
+            if not torch.equal(got, ref):
+                bad = (got != ref).reshape(len(got), -1).any(dim=1)
+                rows = args[0].reshape(len(args[0]), -1)[bad]
+                fin = torch.isfinite(rows)
+                big = float(rows[fin].abs().max()) if fin.any() else 0.0
+                check(False, f"{what}: {kind} kernel == plain, "
+                             f"{int(bad.sum())} of {len(got)} rows of "
+                             f"{tuple(args[0].shape)} differ, "
+                             f"{int((~fin).any(dim=1).sum())} of them with "
+                             f"non-finite inputs, max |finite input| {big:g}")
+            n, e, shapes = seen.get(kind, (0, 0.0, set()))
+            shapes.add("x".join(map(str, args[0].shape)))
+            seen[kind] = (n + 1, max(e, err), shapes)
+    return seen
+
+
+def reset() -> None:
+    """Every kernel's launch count to 0."""
+    kv.LAUNCHES = kg.LAUNCHES = kg.SHARED_LAUNCHES = 0
+    kg.MULTI_LAUNCHES = 0
+
+
+def read(into=None) -> dict:
+    """The launch counts since reset(), added into `into` when given."""
+    got = {"viterbi": kv.LAUNCHES, "slice": kg.LAUNCHES,
+           "slice_shared": kg.SHARED_LAUNCHES,
+           "slice_multi": kg.MULTI_LAUNCHES}
+    if into is not None:
+        for k, v in got.items():
+            into[k] += v
+    return got
 
 
 def sweep_kernel_inputs(dev):
@@ -842,6 +950,446 @@ EXAMPLE_BINS = {
     "sig80211GenWideband_40MHz.bin": (40e6, [(F.VHT, 7)]),
     "sig80211GenWideband_80MHz.bin": (80e6, [(F.VHT, 9)]),
 }
+
+
+def mesh_capture():
+    """tests/test_sharded_capture.py's `_build` on one rank: two rows of L
+    MCS7 packets (the 30-byte UDP MPDU, CFO 9 kHz) at offsets 600 / 5000 and
+    1200 / 3400. Returns (capture [2, T], offsets, mod, ppdu params, window
+    length, mpdu)."""
+    mpdu = build_udp_mpdu(b"123456789012345678901234567890",
+                          MacConfig(seq=2704, **MAC))
+    mod = Mod(F.L, 7)
+    pp = ppdu_params_nonaggregate(mod, len(mpdu))
+    wave = finalize(gen_mpdu(mpdu, mod).waveform, multiplier=0.2,
+                    cfo_hz=9000.0, gap=False)[0]
+    w = RxPipeline(mod, pp.n_sym, pp.psdu_len, device="cpu").window_len()
+    offs = [[600, 5000], [1200, 3400]]
+    t_len = -(-(max(max(o) for o in offs) + len(wave) + w) // 512) * 512
+    cap = np.zeros((2, t_len), np.complex64)
+    for r, row in enumerate(offs):
+        for o in row:
+            cap[r, o:o + len(wave)] += wave
+    return cap, offs, mod, pp, w, mpdu
+
+
+def envelope_capture():
+    """__graft_entry__.dryrun_multichip's capture on one rank (seed 5): L
+    MCS7 and a VHT MCS7 A-MPDU through a flat channel to both chains, an HT
+    MCS12 2x2 packet and a 2-stream VHT NDP through a 2x2 channel, noise
+    1e-4. Returns (capture [1, 2, T], branches, window length, mpdu)."""
+    rng = np.random.default_rng(5)
+    mpdu = build_udp_mpdu(b"123456789012345678901234567890",
+                          MacConfig(seq=2704, **MAC))
+    ampdu = aggregate_vht([mpdu])
+    mod_l, mod_vht, mod_22 = Mod(F.L, 7), Mod(F.VHT, 7), Mod(F.HT, 12,
+                                                              BW.BW20, 2)
+    n_l = ppdu_params_nonaggregate(mod_l, len(mpdu)).n_sym
+    n_vht = ppdu_params_aggregate(mod_vht, len(ampdu)).n_sym
+    n_22 = ppdu_params_nonaggregate(mod_22, len(mpdu)).n_sym
+    h1 = np.array([0.9 - 0.3j, 0.5 + 0.8j])[:, None]
+    h22 = np.array([[1.1 + 0.2j, 0.3 - 0.5j], [-0.4 + 0.6j, 0.9 + 0.1j]])
+    waves = [h1 * finalize(gen_mpdu(mpdu, mod_l).waveform, multiplier=0.2,
+                           cfo_hz=12000.0, gap=False)[0],
+             h1 * finalize(gen_ampdu(ampdu, mod_vht).waveform,
+                           multiplier=0.2, cfo_hz=5000.0, gap=False)[0],
+             h22 @ finalize(gen_mpdu(mpdu, mod_22).waveform, multiplier=0.2,
+                            cfo_hz=-8000.0, gap=False),
+             h22 @ finalize(gen_ampdu(b"", Mod(F.VHT, 0, BW.BW20,
+                                               2)).waveform,
+                            multiplier=0.2, cfo_hz=3000.0, gap=False)]
+    branches = ((mod_l, n_l), (mod_vht, n_vht), (mod_22, n_22))
+    w = max(MrcDataDecoder(mod_l, n_l).window_capacity(),
+            MrcDataDecoder(mod_vht, n_vht).window_capacity(),
+            272 + 448 + 160 + 80 * n_22 + 160)
+    mw = max(wv.shape[1] for wv in waves)
+    t_len = -(-(4 * (mw + 900) + 2 * w) // 512) * 512
+    cap = np.zeros((1, 2, t_len), np.complex64)
+    for o, wv in zip([64, 64 + mw + 900, 64 + 2 * (mw + 900),
+                      t_len - mw - w], waves):
+        cap[0, :, o:o + wv.shape[1]] += wv
+    cap += (rng.standard_normal(cap.shape)
+            + 1j * rng.standard_normal(cap.shape)) * 1e-4
+    return cap, branches, w, mpdu
+
+
+def mu_loop_capture():
+    """tests/test_sharded_dual.py::test_sharded_auto2_mu_branch's capture in
+    two rows: a 2-user MU PPDU (VHT MCS4 + MCS2, identity Q, group 2) whose
+    stream 0 reaches both chains, then an SU VHT MCS7 A-MPDU. Returns
+    (capture [2, 2, T], branches, MU branches, window length, station 0's
+    MPDU, the SU MPDU)."""
+    cfg = MacConfig(seq=2704, **MAC)
+    mpdu0 = build_udp_mpdu(b"sharded mu user zero exact pay", cfg)
+    mpdu1 = build_udp_mpdu(b"sharded mu user one exact payl", cfg)
+    mpdu_su = build_udp_mpdu(b"sharded su packet exact paylo", cfg)
+    qi = np.tile(np.eye(2, dtype=np.complex64)[None], (64, 1, 1))
+    mods = [Mod(F.VHT, 4, BW.BW20, 1), Mod(F.VHT, 2, BW.BW20, 1)]
+    amps = [aggregate_vht([mpdu0]), aggregate_vht([mpdu1])]
+    mu_wave = finalize(gen_ampdu_mu(amps, mods, bfq=qi,
+                                    group_id=MU_GID).waveform, 0.2, -6000.0,
+                       gap=False)
+    g = np.array([0.9 - 0.2j, 0.55 + 0.7j])[:, None]
+    mod_su = Mod(F.VHT, 7)
+    amp_su = aggregate_vht([mpdu_su])
+    su_wave = finalize(gen_ampdu(amp_su, mod_su).waveform, 0.2, 9000.0,
+                       gap=False)[0]
+    n_mu = max(ppdu_params_aggregate(m, len(a)).n_sym
+               for m, a in zip(mods, amps))
+    n_su = ppdu_params_aggregate(mod_su, len(amp_su)).n_sym
+    w = max(MrcDataDecoder(mod_su, n_su).window_capacity(),
+            272 + 448 + 4 * 80 + 160 + (n_mu + 2) * 80 + 80)
+    z = np.zeros((2, 700), np.complex64)
+    seg = np.concatenate([z, g * mu_wave[0], z,
+                          np.array([[0.8], [0.3 + 0.6j]]) * su_wave], axis=1)
+    t_len = -(-(seg.shape[1] + 2 * w) // 512) * 512
+    cap = np.zeros((2, 2, t_len), np.complex64)
+    for r in range(2):
+        cap[r, :, 64 + 32 * r:64 + 32 * r + seg.shape[1]] += seg
+    return (cap, ((mod_su, n_su),), ((mods[0], n_mu + 2),), w, mpdu0,
+            mpdu_su)
+
+
+def wideband_loop_capture():
+    """tests/test_sharded_capture.py::test_sharded_auto_wideband_80mhz's
+    capture: a VHT MCS9 80 MHz A-MPDU (CFO 35 kHz) in each of two rows, at
+    256 and 384. Returns (capture [2, T], mod, n_sym, window length,
+    mpdu)."""
+    mpdu = build_udp_mpdu(b"wideband mesh loop payload 80MHz",
+                          MacConfig(seq=2704, **MAC))
+    ampdu = aggregate_vht([mpdu])
+    mod = Mod(F.VHT, 9, BW.BW80, 1)
+    n_sym = ppdu_params_aggregate(mod, len(ampdu)).n_sym
+    wave = finalize(gen_ampdu(ampdu, mod).waveform, 0.2, 35000.0,
+                    gap=False)[0]
+    w = branch_window_len(mod, n_sym)
+    t_len = -(-(len(wave) + 3000 + 2 * w) // 512) * 512
+    cap = np.zeros((2, t_len), np.complex64)
+    for r in range(2):
+        cap[r, 256 + 128 * r:256 + 128 * r + len(wave)] += wave
+    return cap, mod, n_sym, w, mpdu
+
+
+def loop_mpdus(out, row: int = 0, psdu_len=None):
+    """The MPDUs of one row's `ok` windows whose FCS holds, in time order,
+    as the receivers assemble them (`assemble_psdu`: VHT and MU PSDUs are
+    A-MPDUs, HT ones when their aggregation bit is set); `ok` is SIG
+    consistency, and the FCS drops re-trigger junk, as
+    tests/test_sharded_capture.py applies it. psdu_len: the one length of a
+    loop without a planner. Returns [(window, fmt, [mpdu, ...])]."""
+    ok = out["ok"][row].cpu().numpy()
+    bits = out["bits"][row].cpu().numpy().astype(np.uint8)
+    n = len(ok)
+    fmt = out["fmt"][row].cpu().numpy() if "fmt" in out else np.zeros(n)
+    vht = fmt == 2
+    if "mu" in out:
+        vht |= out["mu"][row].cpu().numpy()
+    ht_agg = (out["ampdu"][row].cpu().numpy() if "ampdu" in out
+              else np.zeros(n, bool))
+    lens = (np.full(n, psdu_len) if psdu_len is not None
+            else out["psdu_len"][row].cpu().numpy())
+    got = []
+    for j in np.flatnonzero(ok):
+        psdu = np.packbits(bits[j, 16:16 + int(lens[j]) * 8],
+                           bitorder="little").tobytes()
+        if vht[j] or ht_agg[j]:
+            subs = (deaggregate_vht if vht[j] else deaggregate_ht)(psdu)
+            mpdus = [s.mpdu for s in subs if s.fcs_ok]
+        else:
+            mpdus = [psdu] if fcs_ok(psdu) else []
+        if mpdus:
+            got.append((int(j), int(fmt[j]), mpdus))
+    return got
+
+
+def host_ms(fn, iters: int = 3) -> float:
+    """Median wall time of fn() in ms, each run ending in a synchronize,
+    after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    dts = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(dts))
+
+
+def loop_call(run, x, what: str, kinds, launches: dict, dev):
+    """One capture loop on the card, called as a user calls it. The first
+    call records every Viterbi and slice launch, each then held to its
+    plain version; the second is the path's counted run (launch counts from
+    0, implicit syncs); then its peak memory, its time (CUDA events, median
+    of LOOP_ITERS after a warm-up) and the card's busy time in one more
+    call. Returns (the counted call's outputs, a line of what was measured,
+    ms per call)."""
+    with torch.inference_mode():
+        with kernel_inputs() as calls:
+            run(x)
+        torch.cuda.synchronize()
+        reset()
+        out, implicit = counted(lambda: run(x))
+        got = read(launches)
+        check(all(got[k] > 0 for k in kinds), f"{what}: launches {got}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        run(x)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        ms = cuda_ms(lambda: run(x), iters=LOOP_ITERS, warmup=1)
+        busy_ms = kernels_ms(lambda: run(x), iters=1, warmup=0)
+    seen = check_recorded(calls, what)
+    del calls
+    kern = "; ".join(f"{k} {n} launches [{', '.join(sorted(s))}] max |err| "
+                     f"{e:g}" for k, (n, e, s) in seen.items())
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.4f} ms, {busy_ms / ms:.4f} of the call")
+    return out, (f"launches {got}; implicit syncs {implicit}; peak memory "
+                 f"{peak:.3f} GiB above the inputs; {ms:.4f} ms per call "
+                 f"(median of {LOOP_ITERS}); device busy {busy}; recorded "
+                 f"launches, each == plain: {kern}"), ms
+
+
+def loop_phases(dev, tag: str, launches: dict, headline, loop_cap,
+                api_mpdus, loop_mcap, mseg, mwant: int) -> None:
+    """Phases 27-31: the sharded capture loop on one rank (a 1-rank NCCL
+    group). headline: (cell, pipeline, x2, t0, its step's outputs) of phase
+    5's 20 MHz batch; loop_cap and api_mpdus: the first SISO stream capture
+    and its 20-packet segment's MPDUs; loop_mcap, mseg and mwant: the first
+    dual-chain stream capture, its segment's (mod, mpdu) and its packet
+    count. Launch counts add into `launches`."""
+    siso_kernels = ("viterbi", "slice", "slice_shared")
+    mimo_kernels = ("viterbi", "slice", "slice_multi")
+    # -- 27. the mesh on one card --------------------------------------------
+    mesh = make_phy_mesh(device=dev)
+    print(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} over "
+          f"ranks {mesh.mesh.flatten().tolist()}, {dist.get_backend()}; "
+          f"process_summary {process_summary()}")
+    # the stream capture with 30 dB of noise: in a run of zeros the long
+    # moving sums are rounding residues, whose ratio the card's scan (its
+    # association order varies from call to call) leaves undefined
+    xs = torch.from_numpy(c2r(add_noise(loop_cap, 30.0, seed=27))[None]).to(
+        dev)
+    with torch.inference_mode():
+        ac = sharded_frontend(mesh, xs)
+        ref = sync.stf_autocorr(r2c(torch.cat(
+            [xs, xs.new_zeros(1, HALO, 2)], dim=1)))[:, :xs.shape[1]]
+        ref[:, -HALO:] = 0.0
+        d_ac = float((ac - ref).abs().max())
+    check(ac.shape == ref.shape and d_ac <= AC_TOL,
+          f"sharded_frontend == stf_autocorr within {AC_TOL} ({d_ac:.3g})")
+    print(f"sharded_frontend [1 x {xs.shape[1]}] (the stream capture at 30 "
+          f"dB): == stf_autocorr of the whole capture, max |d| {d_ac:.3g}")
+    cell, pipe, x2, t0, step_out = headline
+    xd, td = torch.from_numpy(x2).to(dev), torch.from_numpy(t0).to(dev)
+    run_rx = sharded_rx(mesh, pipe.mod, pipe.n_sym)
+    run_mc = multichip_step(mesh, pipe.mod, pipe.n_sym)
+    with torch.inference_mode():
+        reset()
+        out = run_rx(xd, td)
+        torch.cuda.synchronize()
+        got = read(launches)
+        check(got["viterbi"] > 0 and got["slice"] > 0,
+              f"sharded_rx launches {got}")
+        check(all(torch.equal(out[k], step_out[k])
+                  for k in ("bits", "ltf_start", "lsig_ok")),
+              "sharded_rx == RxPipeline.step (bits, ltf_start, lsig_ok)")
+        reset()
+        mc = run_mc(xs, xd, td)
+        torch.cuda.synchronize()
+        got_mc = read(launches)
+        check(got_mc["viterbi"] > 0 and got_mc["slice"] > 0,
+              f"multichip_step launches {got_mc}")
+        check(torch.equal(mc["bits"], step_out["bits"])
+              and int(mc["n_ok"]) == cell["batch"]
+              and abs(float(mc["ac_peak"]) - float(ac.max())) <= AC_TOL,
+              "multichip_step: the step's bits, n_ok, ac_peak")
+        ms_rx = cuda_ms(lambda: run_rx(xd, td))
+        ms_step = cuda_ms(lambda: pipe.step(xd, td))
+    n_win = xd.shape[0] * xd.shape[1]
+    print(f"sharded_rx and multichip_step on the headline batch "
+          f"[{xd.shape[0]} x {xd.shape[1]}]: bits == RxPipeline.step's, "
+          f"n_ok {int(mc['n_ok'])}; launches {got} / {got_mc}; sharded_rx "
+          f"{ms_rx:.4f} ms ({n_win / (ms_rx * 1e-3):.6g} samples/s), the "
+          f"step {ms_step:.4f} ms {tag}")
+    mcap_l, offs, mod_l, pp_l, w_l, mpdu_l = mesh_capture()
+    reset()
+    with torch.inference_mode():
+        out = sharded_capture_decode(mesh, mod_l, pp_l.n_sym, w_l)(
+            torch.from_numpy(c2r(mcap_l)).to(dev))
+        torch.cuda.synchronize()
+    got = read(launches)
+    check(got["viterbi"] > 0 and got["slice"] > 0
+          and got["slice_shared"] > 0,
+          f"sharded_capture_decode launches {got}")
+    srx = SisoReceiver(device=dev)
+    for r, row in enumerate(offs):
+        pk = loop_mpdus(out, r, pp_l.psdu_len)
+        trig = out["trig_t"][r][out["ok"][r]].cpu().numpy()
+        check([m for _, _, m in pk] == [[mpdu_l]] * len(row)
+              and len(trig) == len(row)
+              and np.all(np.abs(trig - np.asarray(row)) < 40),
+              f"sharded_capture_decode row {r}: packets at {row}")
+        check([m for _, _, m in pk] == [p.mpdus for p in srx.decode_capture(
+            mcap_l[r]) if p.fcs_ok],
+              f"sharded_capture_decode row {r} == SisoReceiver")
+    print(f"sharded_capture_decode (L MCS7, 2 rows x {mcap_l.shape[1]}): "
+          f"every packet decodes to the exact MPDU, triggers within 40 of "
+          f"their offsets, == SisoReceiver.decode_capture; launches {got}")
+
+    # -- 28. sharded_capture_decode_auto on a stream capture -----------------
+    ht = max(ppdu_params_nonaggregate(Mod(F.HT, 5), len(m)).n_sym
+             for m in api_mpdus[0::2])
+    vht = max(ppdu_params_aggregate(Mod(F.VHT, 7), len(aggregate_vht(
+        [m]))).n_sym for m in api_mpdus[1::2])
+    branches = ((Mod(F.HT, 5), ht), (Mod(F.VHT, 7), vht))
+    # the generic decoder cuts its DATA at the VHT offset from every
+    # window: a window shorter than its capacity clips that cut's start
+    # and decodes garbage (the JAX loop checks only the branches' lengths)
+    w = max([branch_window_len(m, c) for m, c in branches]
+            + [GenericSisoDecoder(((F.HT, 5), (F.VHT, 7)), max(ht, vht),
+                                  device="cpu").window_capacity()])
+    srx = SisoReceiver(device=dev)
+    want = [r.mpdus for r in srx.decode_capture(loop_cap) if r.fcs_ok]
+    check(len(want) == N_API * N_COPY, f"SisoReceiver: {len(want)} packets")
+    rx_ms = host_ms(lambda: srx.decode_capture(loop_cap))
+    n_samp = len(loop_cap)
+    print(f"auto loop capture: {n_samp} samples, {len(want)} packets, "
+          f"branches HT5 x {ht} and VHT7 x {vht} symbols, window {w}, "
+          f"k_per_shard {LOOP_K}; SisoReceiver.decode_capture on it "
+          f"{rx_ms:.4f} ms (median of 3), {n_samp / (rx_ms * 1e-3):.6g} "
+          f"samples/s {tag}")
+    x = torch.from_numpy(c2r(loop_cap)[None]).to(dev)
+    for generic in (False, True):
+        what = ("sharded_capture_decode_auto"
+                + (" generic=True" if generic else " (branch loop)"))
+        run = sharded_capture_decode_auto(mesh, branches, w,
+                                          k_per_shard=LOOP_K,
+                                          generic=generic)
+        out, line, ms = loop_call(run, x, what, siso_kernels, launches, dev)
+        pk = loop_mpdus(out)
+        check(not bool(out["overflow"].any()), f"{what}: no overflow")
+        check([m for _, _, m in pk] == want,
+              f"{what}: {len(pk)}/{len(want)} packets == SisoReceiver's")
+        print(f"{what}: {len(pk)}/{len(want)} packets with a good FCS, == "
+              f"SisoReceiver.decode_capture, no overflow; "
+              f"{n_samp / (ms * 1e-3):.6g} samples/s; {line} {tag}")
+        del run, out
+    del x
+
+    # -- 29. sharded_capture_decode_auto2 on a dual-chain stream capture -----
+    caps2 = {}
+    for mod, mp in mseg:
+        n = ppdu_params_aggregate(mod, len(aggregate_vht([mp]))).n_sym
+        caps2[mod] = max(caps2.get(mod, 0), n)
+    branches2 = tuple(caps2.items())
+    w2 = max(272 + (MimoDataDecoder(m, c) if m.nSS == 2 else MrcDataDecoder(
+        m, c)).data_offset() + c * 80 + 80 for m, c in branches2)
+    mrx = MimoReceiver(device=dev)
+    want2 = [r.mpdus for r in mrx.decode_capture(loop_mcap) if r.fcs_ok]
+    check(len(want2) == mwant, f"MimoReceiver: {len(want2)} packets")
+    mrx_ms = host_ms(lambda: mrx.decode_capture(loop_mcap))
+    n_samp2 = loop_mcap.shape[1]
+    print(f"auto2 loop capture: 2 x {n_samp2} samples, {len(want2)} "
+          f"packets, branches "
+          f"{', '.join(f'{m.fmt.name}{m.mcs} nSS {m.nSS} x {c}' for m, c in branches2)}"
+          f" symbols, window {w2}, k_per_shard {LOOP2_K}; "
+          f"MimoReceiver('auto').decode_capture on it {mrx_ms:.4f} ms "
+          f"(median of 3), {n_samp2 / (mrx_ms * 1e-3):.6g} samples/s per "
+          f"chain {tag}")
+    x = torch.from_numpy(c2r(loop_mcap)[None]).to(dev)
+    for cap_b in (None, LOOP2_CAP):
+        what = f"sharded_capture_decode_auto2 branch_cap={cap_b}"
+        run = sharded_capture_decode_auto2(mesh, branches2, w2,
+                                           k_per_shard=LOOP2_K,
+                                           branch_cap=cap_b)
+        out, line, ms = loop_call(run, x, what, mimo_kernels, launches, dev)
+        pk = loop_mpdus(out)
+        check(not bool(out["overflow"].any())
+              and not bool(out["branch_overflow"].any()),
+              f"{what}: no overflow")
+        check([m for _, _, m in pk] == want2,
+              f"{what}: {len(pk)}/{len(want2)} packets == MimoReceiver's")
+        print(f"{what}: {len(pk)}/{len(want2)} packets with a good FCS, == "
+              f"MimoReceiver('auto'), no overflow; "
+              f"{n_samp2 / (ms * 1e-3):.6g} samples/s per chain; {line} "
+              f"{tag}")
+        del run, out
+    del x
+
+    # -- 30. the loop's envelope ---------------------------------------------
+    ecap, ebranches, ew, empdu = envelope_capture()
+    reset()
+    with torch.inference_mode():
+        out = sharded_capture_decode_auto2(mesh, ebranches, ew, k_per_shard=8,
+                                           branch_cap=8)(
+            torch.from_numpy(c2r(ecap)).to(dev))
+        torch.cuda.synchronize()
+    got = read(launches)
+    check(all(got[k] > 0 for k in mimo_kernels), f"envelope launches {got}")
+    pk = loop_mpdus(out)
+    check(not bool(out["overflow"].any())
+          and not bool(out["branch_overflow"].any())
+          and sorted(f for _, f, _ in pk) == [0, 1, 2]
+          and all(m == [empdu] for _, _, m in pk)
+          and sorted(int(out["nss"][0, j]) for j, _, _ in pk) == [1, 1, 2],
+          "envelope: L, VHT, HT 2x2")
+    n_ndp = 0
+    for j in np.flatnonzero(out["ndp"][0].cpu().numpy()):
+        iq = out["ndp_ltf"][0, j, 0].cpu().numpy()
+        iq = iq[:, 0] + 1j * iq[:, 1]
+        est = ndp_ltf_channel(np.concatenate([iq[8:72], iq[88:152]]),
+                              n_sts=2)
+        n_ndp += bool(np.all(np.isfinite(est)) and np.abs(est).max() > 1e-3)
+    check(n_ndp == 1, f"envelope: {n_ndp} NDPs give a channel")
+    print(f"envelope (dryrun_multichip's capture, 2 x {ecap.shape[2]}): L "
+          f"MCS7, VHT MCS7 A-MPDU, HT MCS12 2x2 decode to the exact MPDU, "
+          f"the NDP's LTFs give ndp_ltf_channel; launches {got}")
+    mcap_mu, br_su, br_mu, w_mu, mpdu0, mpdu_su = mu_loop_capture()
+    for cap_b in (None, 4):
+        reset()
+        with torch.inference_mode():
+            out = sharded_capture_decode_auto2(
+                mesh, br_su, w_mu, k_per_shard=4, branch_cap=cap_b,
+                mu_branches=br_mu, mu_pos=0, mu_gid=MU_GID)(
+                    torch.from_numpy(c2r(mcap_mu)).to(dev))
+            torch.cuda.synchronize()
+        got = read(launches)
+        check(all(got[k] > 0 for k in mimo_kernels), f"MU loop {got}")
+        for r in range(2):
+            pk = loop_mpdus(out, r)
+            check([(bool(out["mu"][r, j]), m) for j, _, m in pk]
+                  == [(True, [mpdu0]), (False, [mpdu_su])],
+                  f"MU loop (branch_cap={cap_b}) row {r}")
+        print(f"MU branch (branch_cap={cap_b}, 2 rows x 2 x "
+              f"{mcap_mu.shape[2]}): station 0's MPDU from the MU PPDU and "
+              f"the SU A-MPDU in each row; launches {got}")
+    wcap, wmod, wn, ww, wmpdu = wideband_loop_capture()
+    reset()
+    with torch.inference_mode():
+        out = sharded_capture_decode_auto(mesh, ((wmod, wn),), ww,
+                                          k_per_shard=4, q=4)(
+            torch.from_numpy(c2r(wcap)).to(dev))
+        torch.cuda.synchronize()
+    got = read(launches)
+    check(all(got[k] > 0 for k in siso_kernels), f"80 MHz loop {got}")
+    check(all([m for _, _, m in loop_mpdus(out, r)] == [[wmpdu]]
+              for r in range(2)), "80 MHz loop: one VHT9 packet per row")
+    print(f"80 MHz (2 rows x {wcap.shape[1]}, q = 4): the VHT MCS9 A-MPDU "
+          f"decodes in each row; launches {got}")
+
+    # -- 31. perf.scaling on one rank ----------------------------------------
+    reset()
+    rates = measure_scaling(device=dev)
+    got = read(launches)
+    check(list(rates) == [1] and rates[1] > 0
+          and got["viterbi"] > 0 and got["slice"] > 0,
+          f"measure_scaling: {rates}, launches {got}")
+    print(f"measure_scaling on one rank (sharded_rx, L MCS7, batch 256, "
+          f"median of 5 on CUDA events): {{1: {rates[1]:.6g}}} samples/s; "
+          f"N >= 2 is not measurable on one card; launches {got} {tag}")
+    dist.destroy_process_group()
 
 
 def main() -> int:
@@ -917,25 +1465,32 @@ def main() -> int:
         print(f"viterbi {name} [{batch} x {n_bits} {cr.name}]: kernel == "
               f"plain == encoder bits")
         vit_inputs[name] = (x, cr, n_bits)
+    # LLRs that are not finite or not below 1e30 (a junk window's, e.g. one
+    # whose channel estimate divided by zero): the kernel orders NaN as the
+    # plain version's torch.max does
+    x, cr, n_bits = vit_inputs["data"]
+    odd = x.clone()
+    rng = np.random.default_rng(18)
+    for r, val in enumerate([np.nan] * 16 + [np.inf] * 16 + [-np.inf] * 16
+                            + [3e38] * 8 + [1e30] * 8):
+        odd[r, rng.integers(0, odd.shape[1], 1 + r % 3)] = val
+    got = coding.viterbi_decode(odd, cr, n_bits, w0, w1)
+    ref = coding.viterbi_decode_plain(odd, cr, n_bits, w0, w1)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "viterbi kernel == plain on non-finite LLRs")
+    n_moved = int((got != coding.viterbi_decode(x, cr, n_bits, w0, w1))
+                  .any(dim=1).sum())
+    print(f"viterbi data with 64 rows of NaN / +-inf / 3e38 / 1e30 LLRs: "
+          f"kernel == plain ({n_moved} of those rows decode otherwise)")
     # what the acceptance sweep handed the kernel, as it was: L-SIG, SIG and
     # DATA pairs [100 x T, 2] of every recorded row and point
-    with torch.inference_mode():
-        for name, snr, calls in sweep_calls:
-            shapes = []
-            for kind, args in calls:
-                if kind != "viterbi":
-                    continue
-                lp, w0_, w1_, renorm = args
-                got = kv.viterbi_pairs_cuda(lp, w0_, w1_, renorm)
-                ref = coding.viterbi_pairs_plain(lp, w0_, w1_, renorm)
-                torch.cuda.synchronize()
-                vit_err = max(vit_err, int((got - ref).abs().max()))
-                check(torch.equal(got, ref), f"viterbi kernel == plain "
-                                             f"({name} at {snr:.0f} dB)")
-                shapes.append(f"{lp.shape[0]} x {lp.shape[1]}")
-            check(bool(shapes), f"{name}: the sweep launched the Viterbi")
-            print(f"viterbi sweep {name} at {snr:.0f} dB, pairs "
-                  f"[{'], ['.join(shapes)}]: kernel == plain")
+    for name, snr, calls in sweep_calls:
+        seen = check_recorded([c for c in calls if c[0] == "viterbi"],
+                              f"{name} at {snr:.0f} dB")
+        check("viterbi" in seen, f"{name}: the sweep launched the Viterbi")
+        vit_err = max(vit_err, int(seen["viterbi"][1]))
+        print(f"viterbi sweep {name} at {snr:.0f} dB, pairs "
+              f"[{'], ['.join(sorted(seen['viterbi'][2]))}]: kernel == plain")
 
     # -- 4. slice kernel vs plain --------------------------------------------
     slice_err = 0.0
@@ -957,21 +1512,12 @@ def main() -> int:
     # the windows the acceptance sweep cut, as it cut them: per chain at
     # 20, 40 and 80 MHz
     for name, snr, calls in sweep_calls:
-        shapes = []
-        for kind, args in calls:
-            if kind != "slice":
-                continue
-            x2, st, length = args
-            got = kg.batch_slice_iq_cuda(x2, st, length)
-            ref = sync.batch_slice_iq_plain(x2, st, length)
-            torch.cuda.synchronize()
-            slice_err = max(slice_err, float((got - ref).abs().max()))
-            check(torch.equal(got, ref), f"slice kernel == plain ({name} at "
-                                         f"{snr:.0f} dB)")
-            shapes.append(f"{x2.shape[0]} x {x2.shape[1]} -> {length}")
-        check(bool(shapes), f"{name}: the sweep launched the slice")
-        print(f"slice sweep {name} at {snr:.0f} dB [{'], ['.join(shapes)}]: "
-              f"kernel == plain")
+        seen = check_recorded([c for c in calls if c[0] == "slice"],
+                              f"{name} at {snr:.0f} dB")
+        check("slice" in seen, f"{name}: the sweep launched the slice")
+        slice_err = max(slice_err, seen["slice"][1])
+        print(f"slice sweep {name} at {snr:.0f} dB "
+              f"[{'], ['.join(sorted(seen['slice'][2]))}]: kernel == plain")
     del sweep_calls
 
     # -- 5./6. the main path -------------------------------------------------
@@ -1141,19 +1687,6 @@ def main() -> int:
                   library=lambda: torch.gather(wide, 1, idx))
     del cap_dev
 
-    def reset():
-        kv.LAUNCHES = kg.LAUNCHES = kg.SHARED_LAUNCHES = 0
-        kg.MULTI_LAUNCHES = 0
-
-    def read(into=None):
-        got = {"viterbi": kv.LAUNCHES, "slice": kg.LAUNCHES,
-               "slice_shared": kg.SHARED_LAUNCHES,
-               "slice_multi": kg.MULTI_LAUNCHES}
-        if into is not None:
-            for k, v in got.items():
-                into[k] += v
-        return got
-
     # the SISO receiver's windows come from a one-chain capture, the
     # dual-chain receiver's from the [2, N] capture
     siso_kernels = ("viterbi", "slice", "slice_shared")
@@ -1242,6 +1775,7 @@ def main() -> int:
               f"(runs {', '.join(f'{d:.4f}' for d in dts)}): "
               f"{stream_rate[name][0]:.6g} samples/s, "
               f"{stream_rate[name][1]:.6g} packets/s {tag}")
+    loop_cap = caps[0]    # the sharded loop's capture (phases 27-28)
     del caps, rx_h, rx_d
 
     # -- 13. multi-chain slice kernel vs plain -------------------------------
@@ -1353,7 +1887,7 @@ def main() -> int:
           f"auto decodes it")
 
     # -- 17. the dual-chain stream at full width -----------------------------
-    mcaps, mwant = mimo_stream_captures()
+    mcaps, mwant, mseg = mimo_stream_captures()
     mtotal = sum(c.shape[1] for c in mcaps)
     print(f"dual-chain stream: {len(mcaps)} captures of 2 x "
           f"{mcaps[0].shape[1]}-{mcaps[-1].shape[1]} samples, {mwant} "
@@ -1400,6 +1934,7 @@ def main() -> int:
               f"{', '.join(f'{d:.4f}' for d in dts)}): "
               f"{mimo_rate[det][0]:.6g} samples/s per chain, "
               f"{mimo_rate[det][1]:.6g} packets/s {tag}")
+    loop_mcap = mcaps[0]  # the dual-chain loop's (phase 29)
     del mcaps, mrxs
 
     # -- 18. TxPipeline -------------------------------------------------------
@@ -1721,7 +2256,12 @@ def main() -> int:
     print(f"mu_sounding_demo: both stations decode their own payload; "
           f"launches {got}")
 
-    # -- 27. the kernels line ------------------------------------------------
+    # -- 27.-31. the sharded capture loop ------------------------------------
+    cell, pipe, x2, t0, _ = rows[20]
+    loop_phases(dev, tag, launches, (cell, pipe, x2, t0, outs[20]), loop_cap,
+                api_mpdus, loop_mcap, mseg, mwant)
+
+    # -- 32. the kernels line ------------------------------------------------
     def entry(name, source, replaces, key, err, t):
         return {"name": name, "route": "cuda",
                 "source": f"ieee80211_tpu_torch/csrc/{source}",

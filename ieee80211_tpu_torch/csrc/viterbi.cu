@@ -11,7 +11,9 @@
 //     scan over p = 0..15 with a strict >, so ties keep the lower path;
 //   * float32 metrics minus their max over states every `renorm` blocks, at
 //     block t with t % renorm == renorm - 1;
-//   * traceback from the first state of maximal final metric.
+//   * traceback from the first state of maximal final metric;
+//   * NaN is the greatest value, and the first NaN wins a max, as
+//     torch.max, amax and argmax order them in the plain version.
 // Built with -fmad=false. With these rules the kernel equals the plain
 // PyTorch version (ops/coding.py::viterbi_pairs_plain) bit for bit.
 //
@@ -57,7 +59,13 @@
 //     lane l keeps the state of block 32c + l and writes its 4 bits as one
 //     16-byte store, so a chunk's bits leave as 512 contiguous bytes;
 //   * one warp per thread block, so even a small batch spreads over every
-//     SM.
+//     SM;
+//   * NaN metrics arise only from LLRs that are not finite or of magnitude
+//     kBig or more: the path metrics of smaller ones stay far below
+//     float32's range, since any state reaches any other within two blocks.
+//     A first pass over the packet's LLRs flags such a packet, and only
+//     it runs the NaN-ordering compares (kNan): a junk window, e.g. one
+//     whose channel estimate divides by zero.
 // No tensor cores, no reduced-precision metrics: the result stays bit-exact.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +81,7 @@ constexpr int kGroups = kChunk / 4;     // survivor words per lane per chunk
 constexpr int kTable = 256;             // one sum per 8-bit coded-bit mask
 constexpr int kPm = kStates + 4;        // padded path-metric row
 constexpr float kNeg = -1e30f;          // ops/coding.py NEG
+constexpr float kBig = 1e30f;           // LLRs below it keep metrics finite
 constexpr unsigned kAll = 0xffffffffu;
 
 // states 32..63 sit 4 floats on, so that the predecessor groups of the four
@@ -142,8 +151,22 @@ __device__ __forceinline__ void load_dec_chunk(const uint32_t* dec, int chunk,
   }
 }
 
-// The best of the 16 candidates pv[p] + tv[p] and its path: a scan with a
-// strict >, so a tie keeps the lower path.
+// c beats the best so far: a strict >, so a tie keeps the lower path; with
+// kNan, a NaN beats every number and no later NaN beats it (torch.max).
+template <bool kNan>
+__device__ __forceinline__ bool beats(float c, float best) {
+  return kNan ? (c > best || (c != c && best == best)) : c > best;
+}
+
+// The larger of a and b; with kNan, NaN if either is (torch.amax). Either
+// way the order of a reduction does not change its result.
+template <bool kNan>
+__device__ __forceinline__ float max2(float a, float b) {
+  return kNan ? ((a > b || a != a) ? a : b) : fmaxf(a, b);
+}
+
+// The best of the 16 candidates pv[p] + tv[p] and its path.
+template <bool kNan>
 __device__ __forceinline__ void best_of(const float (&pv)[kPaths],
                                         const float (&tv)[kPaths],
                                         float& best, int& arg) {
@@ -152,7 +175,7 @@ __device__ __forceinline__ void best_of(const float (&pv)[kPaths],
 #pragma unroll
   for (int p = 1; p < kPaths; ++p) {
     const float c = pv[p] + tv[p];
-    if (c > best) {
+    if (beats<kNan>(c, best)) {
       best = c;
       arg = p;
     }
@@ -168,7 +191,7 @@ struct Carry {
 
 // Block t of one packet; kCur = t & 1 picks the double buffers, so every
 // shared address is a register plus an immediate.
-template <int kCur>
+template <int kCur, bool kNan>
 __device__ __forceinline__ void acs_block(
     WarpShared& sh, const int (&idx0)[kPaths], const int (&idx1)[kPaths],
     int pred, int t, int n_blk, int renorm, int lane, const float4* llr,
@@ -206,8 +229,8 @@ __device__ __forceinline__ void acs_block(
   }
   float best0, best1;
   int arg0, arg1;
-  best_of(pv, tv0, best0, arg0);
-  best_of(pv, tv1, best1, arg1);
+  best_of<kNan>(pv, tv0, best0, arg0);
+  best_of<kNan>(pv, tv1, best1, arg1);
   if (more) {
     float4* next = reinterpret_cast<float4*>(sh.table[kCur ^ 1]);
     next[lane] = lo;
@@ -215,10 +238,10 @@ __device__ __forceinline__ void acs_block(
   }
   if (++cr.since_renorm == renorm) {
     cr.since_renorm = 0;
-    float mx = fmaxf(best0, best1);
+    float mx = max2<kNan>(best0, best1);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(kAll, mx, off));
+      mx = max2<kNan>(mx, __shfl_xor_sync(kAll, mx, off));
     best0 = best0 - mx;
     best1 = best1 - mx;
   }
@@ -230,6 +253,23 @@ __device__ __forceinline__ void acs_block(
     cr.word = 0;
   }
   __syncwarp();   // also orders the survivor stores before the traceback
+}
+
+// Every block of one packet.
+template <bool kNan>
+__device__ __forceinline__ void trellis(WarpShared& sh,
+                                        const int (&idx0)[kPaths],
+                                        const int (&idx1)[kPaths], int pred,
+                                        int n_blk, int renorm, int lane,
+                                        const float4* llr, uint32_t* dec_b,
+                                        Carry& cr) {
+  for (int t = 0; t < n_blk; t += 2) {
+    acs_block<0, kNan>(sh, idx0, idx1, pred, t, n_blk, renorm, lane, llr,
+                       dec_b, cr);
+    if (t + 1 < n_blk)
+      acs_block<1, kNan>(sh, idx0, idx1, pred, t + 1, n_blk, renorm, lane,
+                         llr, dec_b, cr);
+  }
 }
 
 __global__ void __launch_bounds__(32)
@@ -256,6 +296,15 @@ viterbi_r4_kernel(const float* __restrict__ lp,       // [B, n_blk, 2k]
     idx1[p] = table_at(coded_mask(w0, w1, (lane + 32) * kPaths + p));
   }
   const int pred = pm_at((lane & (kLow - 1)) << kK);
+  // whether an LLR of this packet can make a metric NaN (the compare of
+  // |x| < kBig is false for NaN)
+  bool odd = false;
+  for (int i = lane; i < 2 * n_blk; i += 32) {
+    const float4 v = __ldg(llr + i);
+    odd |= !(fabsf(v.x) < kBig) | !(fabsf(v.y) < kBig) |
+           !(fabsf(v.z) < kBig) | !(fabsf(v.w) < kBig);
+  }
+  const bool nan_path = __any_sync(kAll, odd);
 
   sh.pm[0][pm_at(lane)] = lane == 0 ? 0.0f : kNeg;
   sh.pm[0][pm_at(lane + 32)] = kNeg;
@@ -275,13 +324,11 @@ viterbi_r4_kernel(const float* __restrict__ lp,       // [B, n_blk, 2k]
     reinterpret_cast<float4*>(sh.table[0])[32 + lane] = hi;
     __syncwarp();
   }
-  for (int t = 0; t < n_blk; t += 2) {
-    acs_block<0>(sh, idx0, idx1, pred, t, n_blk, renorm, lane, llr, dec_b,
-                 cr);
-    if (t + 1 < n_blk)
-      acs_block<1>(sh, idx0, idx1, pred, t + 1, n_blk, renorm, lane, llr,
-                   dec_b, cr);
-  }
+  if (nan_path)
+    trellis<true>(sh, idx0, idx1, pred, n_blk, renorm, lane, llr, dec_b, cr);
+  else
+    trellis<false>(sh, idx0, idx1, pred, n_blk, renorm, lane, llr, dec_b,
+                   cr);
 
   // the first state of maximal final metric, as a serial scan in every lane
   const float* fin = sh.pm[n_blk & 1];
@@ -289,7 +336,7 @@ viterbi_r4_kernel(const float* __restrict__ lp,       // [B, n_blk, 2k]
   float m = fin[0];
   for (int i = 1; i < kStates; ++i) {
     const float v = fin[pm_at(i)];
-    if (v > m) {
+    if (beats<true>(v, m)) {
       m = v;
       state = i;
     }

@@ -1,7 +1,9 @@
 """Batched channel-coding ops (PyTorch): soft Viterbi, depuncture, descramble.
 
-Port of ieee80211_tpu/ops/coding.py. The numpy table builders are copies:
-their JAX module cannot be imported where there is no jax.
+Port of ieee80211_tpu/ops/coding.py, with `depuncture_slots` (:84),
+`viterbi_decode_pairs` (:186) and `scramble_seed_of` (:285). The numpy
+table builders are copies: their JAX module cannot be imported where there
+is no jax.
 
 The Viterbi keeps the semantics that the JAX decoder and its TPU kernel
 (ieee80211_tpu/ops/pallas/viterbi.py) fix: radix-2^k add-compare-select in
@@ -59,6 +61,15 @@ def _radix_tables(k: int):
                 s = nxt[s, bits[j]]
             assert s == s2
     return w0, w1
+
+
+@lru_cache(maxsize=None)
+def depuncture_slots(cr: CR, n_steps: int) -> np.ndarray:
+    """Flat indices into a zeroed [n_steps*2] LLR buffer for each surviving
+    (punctured-stream) position."""
+    pat = tables.PUNCTURE[cr].astype(bool)
+    tiled = np.tile(pat, -(-2 * n_steps // len(pat)))[: 2 * n_steps]
+    return np.nonzero(tiled)[0].astype(np.int32)
 
 
 def depuncture(llrs: torch.Tensor, cr: CR, n_steps: int) -> torch.Tensor:
@@ -173,13 +184,34 @@ def viterbi_decode(llrs: torch.Tensor, cr: CR, n_bits: int,
     TPU kernel), every block below it (`_viterbi_core`, the JAX decoder on
     the CPU at radix 3), so radix-3 tables reproduce the JAX CPU decoder.
     """
+    return _decode_pairs(_pairs(llrs, cr, n_bits, w0.shape[-1]), w0,
+                         w1)[:, :n_bits]
+
+
+def _decode_pairs(lp: torch.Tensor, w0: torch.Tensor,
+                  w1: torch.Tensor) -> torch.Tensor:
+    """Pairs [B, T, 2] (T a multiple of the radix) -> bits [B, T]: the plain
+    version on a CPU tensor, the kernel on any other, at the radix's renorm
+    period."""
     k = w0.shape[-1]
-    lp = _pairs(llrs, cr, n_bits, k)
     if lp.device.type == "cpu":
-        bits = viterbi_pairs_plain(lp, w0, w1, RENORM if k == RADIX else 1)
-    else:
-        bits = viterbi_pairs_cuda(lp, w0, w1, RENORM)
-    return bits[:, :n_bits]
+        return viterbi_pairs_plain(lp, w0, w1, RENORM if k == RADIX else 1)
+    return viterbi_pairs_cuda(lp, w0, w1, RENORM)
+
+
+def viterbi_decode_pairs(lp: torch.Tensor, n_bits: int, w0: torch.Tensor,
+                         w1: torch.Tensor) -> torch.Tensor:
+    """viterbi_decode for PRE-DEPUNCTURED LLR pairs [B, n_bits, 2]
+    (punctured slots already zero): the generic multi-config decoder
+    (rx/generic.py) folds depuncturing into its per-window gather. Pads to
+    a multiple of the radix with zero (path-neutral) steps and decodes as
+    `viterbi_decode` does. Returns bits [B, n_bits] int32."""
+    k = w0.shape[-1]
+    t_pad = -(-n_bits // k) * k
+    lp = lp[:, :n_bits]
+    if t_pad != n_bits:
+        lp = F.pad(lp, (0, 0, 0, t_pad - n_bits))
+    return _decode_pairs(lp.contiguous(), w0, w1)[:, :n_bits]
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +247,14 @@ def descramble(bits: torch.Tensor, prbs: torch.Tensor,
     on the device of bits. The seed selects a PRBS row (a row gather; the
     JAX package's one-hot matmul was a choice for the TPU's matrix unit).
     """
+    return bits ^ prbs[scramble_seed_of(bits, seed_inv).long()]
+
+
+def scramble_seed_of(bits: torch.Tensor,
+                     seed_inv: torch.Tensor) -> torch.Tensor:
+    """The scrambler seed [B] of scrambled DATA bits [B, N], read from
+    their first 7 service bits (zero before scrambling); seed_inv:
+    `_seed_from_first7()` as a tensor on the bits' device."""
     weights = torch.arange(7, device=bits.device)
     key = (bits[:, :7].long() << weights).sum(dim=-1)
-    return bits ^ prbs[seed_inv[key].long()]
+    return seed_inv[key]

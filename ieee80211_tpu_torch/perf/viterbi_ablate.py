@@ -46,8 +46,8 @@ SHAPE = (1024, 4680)   # packets x trellis steps
 EDITS = {
     "full": [],
     "no_compare": [(
-        "  best_of(pv, tv0, best0, arg0);\n"
-        "  best_of(pv, tv1, best1, arg1);\n",
+        "  best_of<kNan>(pv, tv0, best0, arg0);\n"
+        "  best_of<kNan>(pv, tv1, best1, arg1);\n",
         "  best0 = best1 = 0.0f;\n"
         "  arg0 = arg1 = 0;\n"
         "#pragma unroll\n"

@@ -142,7 +142,13 @@ def test_import_never_loads_jax(import_probe):
             "ieee80211_tpu_torch.examples.gen_test_captures",
             "ieee80211_tpu_torch.examples.inspect_bin",
             "ieee80211_tpu_torch.examples.stream_decode",
-            "ieee80211_tpu_torch.examples.mu_sounding_demo"} <= set(
+            "ieee80211_tpu_torch.examples.mu_sounding_demo",
+            "ieee80211_tpu_torch.parallel.mesh",
+            "ieee80211_tpu_torch.parallel.distributed",
+            "ieee80211_tpu_torch.parallel.sharded",
+            "ieee80211_tpu_torch.parallel._smoke_worker",
+            "ieee80211_tpu_torch.perf.scaling",
+            "ieee80211_tpu_torch.rx.generic"} <= set(
                 import_probe["modules"])
     assert import_probe["jax"] == []
 
@@ -339,9 +345,12 @@ def test_slice_entry_points_run_on_the_cpu_when_asked(monkeypatch, tmp_path,
 def test_entry_points_without_a_device_need_a_card(monkeypatch):
     """With no device given, every entry point asks for the card, and
     raises where there is none: nothing falls back to the CPU."""
+    from ieee80211_tpu_torch.parallel import (make_global_phy_mesh,
+                                              make_phy_mesh)
     from ieee80211_tpu_torch.rx import (MimoReceiver, SisoReceiver,
                                         get_data_decoder, get_mimo_decoder,
                                         get_mrc_decoder)
+    from ieee80211_tpu_torch.rx.generic import GenericSisoDecoder
     _no_card(monkeypatch)
     mod = port_mod(Mod(F.VHT, 7))
     mod2 = port_mod(Mod(F.VHT, 4, BW.BW20, 2))
@@ -349,7 +358,10 @@ def test_entry_points_without_a_device_need_a_card(monkeypatch):
                   MimoReceiver, lambda: get_data_decoder(mod, 16),
                   lambda: get_mimo_decoder(mod2, 16),
                   lambda: get_mrc_decoder(mod, 16),
-                  lambda: RxPipeline(mod, 18, 582, device="cuda")):
+                  lambda: RxPipeline(mod, 18, 582, device="cuda"),
+                  make_phy_mesh, make_global_phy_mesh,
+                  lambda: make_phy_mesh(device="cuda"),
+                  lambda: GenericSisoDecoder(((F.L, 3), (F.VHT, 7)), 8)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             build()
 
@@ -366,3 +378,24 @@ def test_entry_points_run_on_the_cpu_when_asked(monkeypatch):
     assert MimoReceiver(device="cpu").device == cpu
     assert MimoReceiver(device=cpu).sig.band.device == cpu
     assert get_data_decoder(mod, 16, "cpu").vit_w0.device == cpu
+    from ieee80211_tpu_torch.rx.generic import GenericSisoDecoder
+    dec = GenericSisoDecoder(((F.L, 3), (F.VHT, 7)), 8, device="cpu")
+    assert {b.device for b in dec.buffers()} == {cpu}
+
+
+def test_meshes_run_on_the_cpu_when_asked(monkeypatch):
+    """Without a card and a process group, the mesh builders make a 1-rank
+    gloo group on the CPU when asked for it."""
+    import torch.distributed as dist
+    from ieee80211_tpu_torch.parallel import (make_global_phy_mesh,
+                                              make_phy_mesh)
+    _no_card(monkeypatch)
+    assert not dist.is_initialized()
+    try:
+        for build in (make_phy_mesh, make_global_phy_mesh):
+            mesh = build(device="cpu")
+            assert mesh.device_type == "cpu"
+            assert tuple(mesh.mesh.shape) == (1, 1)
+            assert dist.get_backend() == "gloo"
+    finally:
+        dist.destroy_process_group()

@@ -170,3 +170,34 @@ def assert_packed_parity(ref, got, ok_of, waterfall: bool, what: str):
     else:
         np.testing.assert_array_equal(got, ref)
         assert ok_got > 0
+
+
+# the sharded loops (tests/test_torch_sharded.py, test_torch_distributed.py):
+# these outputs are held exact, these within a tolerance (float32 sums taken
+# in another order; the port's long moving sums in float64)
+LOOP_EXACT = {"bits", "trig_t", "ok", "fmt", "mcs", "nss", "n_sym",
+              "psdu_len", "ampdu", "mu", "ndp", "overflow", "branch_overflow",
+              "ltf_start", "lsig_ok", "n_ok", "mu_n_sym", "mu_nsts",
+              "mu_sidx"}
+LOOP_TOL = {"cfo": 1e-5,      # rad/sample
+            "ndp_ltf": 1e-4,  # NDP LTF I/Q
+            "ac": 1e-4,       # the frontend's autocorrelation
+            "ac_peak": 1e-4}
+
+
+def assert_same(ref: dict, got: dict) -> None:
+    """A loop's output dict of the port (tensors or numpy) against the JAX
+    package's, key for key: shape and dtype, LOOP_EXACT keys equal, the SNR
+    within snr_tol_db, the others within LOOP_TOL."""
+    assert set(got) == set(ref)
+    for k, r in ref.items():
+        r, g = np.asarray(r), np.asarray(got[k])
+        assert g.shape == r.shape and g.dtype == r.dtype, (k, g.shape,
+                                                           r.shape, g.dtype)
+        if k in LOOP_EXACT:
+            np.testing.assert_array_equal(g, r, err_msg=k)
+        elif k == "snr":
+            assert np.all(np.abs(g - r) <= snr_tol_db(r)), k
+        else:
+            np.testing.assert_allclose(g, r, rtol=0, atol=LOOP_TOL[k],
+                                       err_msg=k)
