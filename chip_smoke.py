@@ -16,14 +16,18 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      DATA fields, every bandwidth, MRC, 2x2 and a 4-user MU station
      (100 packets of 500 B);
   4. the window-slice kernel against its plain version, element for element,
-     on random windows and on the windows those sweep points cut;
+     on random windows (odd and even lengths and starts, full-length
+     windows, starts clipped at both ends, int32 and int64 starts) and on
+     the windows those sweep points cut;
   5. + 6. `RxPipeline.step` at VHT MCS7 20 MHz (500 B, batch 1024) and VHT
      MCS9 80 MHz (1800 B, batch 256), the inputs of bench.py's two RX rows:
      every packet must decode to the exact MPDU with a good FCS, the first
      rows must equal the port's CPU run, and launch counters must show that
      each step went through both kernels;
   7. times at the main path's shapes: each kernel per wrapper call (CUDA
-     events, median of 10 after warm-up) and on the device alone (10
+     events, median of 10 after warm-up, in turns with the torch.gather
+     call where there is one), the host's time to issue one call
+     (median of 1000 on the host clock) and on the device alone (10
      launches queued back to back behind a spin of the card), its plain
      version, the one torch.gather call that cuts the same windows (the
      Viterbi has no such PyTorch call), the least time of its work
@@ -31,10 +35,12 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      its kernels' device time (torch.profiler);
   8. the Viterbi floor probe (its own entry point, perf/vit_floor.py):
      kernel == plain at 1024 x 1176 blocks, timed beside the Viterbi kernel
-     on the same input;
+     on the same input, whose skeleton it runs: its device time must be
+     below the Viterbi's;
   9. the shared-source slice kernel against its plain version and
      torch.gather on a 4M-sample capture with 1024 starts, at the SIG and a
-     DATA window length, timed;
+     DATA window length, timed (with the host's issue time beside
+     torch.gather's), and on odd lengths and int64 starts;
  10. `SisoReceiver.decode_capture` on bench.py's 20-packet mixed HT/VHT
      capture: 20/20 exact MPDUs, equal to the port's CPU run;
  11. 80 MHz VHT and 40 MHz HT captures: every packet decodes;
@@ -45,7 +51,8 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      packets/s (best of 3) and the host's waits on the device per capture;
  13. the multi-chain slice kernel against its plain version and
      torch.gather on a [2, 4M] capture with 1024 starts, at the SIG window
-     and a 2x2 DATA window, timed;
+     and a 2x2 DATA window, timed as in phase 9, and on odd lengths and
+     int64 starts;
  14. `MimoReceiver.decode_capture_full` on the dual-chain universal capture
      (legacy, SISO HT/VHT by MRC, 2x2 VHT, a VHT NDP), with both chains live
      and with chain 0 dead: every packet decodes, one NDP with two chain
@@ -164,7 +171,8 @@ from ieee80211_tpu_torch.parallel.sharded import (
 from ieee80211_tpu_torch.perf import acceptance as acc
 from ieee80211_tpu_torch.perf import pdr, vit_floor
 from ieee80211_tpu_torch.perf.scaling import measure_scaling
-from ieee80211_tpu_torch.perf.timing import cuda_ms, device_ms, kernels_ms
+from ieee80211_tpu_torch.perf.timing import (cuda_ms, cuda_ms_turns,
+                                             device_ms, host_us, kernels_ms)
 from ieee80211_tpu_torch.rx import (MimoDataDecoder, MimoReceiver,
                                     MrcDataDecoder, SisoReceiver,
                                     get_mimo_decoder, receiver)
@@ -1495,20 +1503,29 @@ def main() -> int:
     # -- 4. slice kernel vs plain --------------------------------------------
     slice_err = 0.0
     rng = np.random.default_rng(9)
-    for b, n, length in [(66, 2321, 2080), (1024, 2320, 448),
-                         (1024, 2320, 2080)]:
+    # (windows, samples, length, start dtype): odd and even lengths and
+    # row strides, full-length windows, starts past both ends
+    for b, n, length, dt in [(66, 2321, 2080, torch.int32),
+                             (1024, 2320, 448, torch.int32),
+                             (1024, 2320, 2080, torch.int32),
+                             (1024, 2320, 2080, torch.int64),
+                             (67, 2321, 2079, torch.int32),
+                             (5, 300, 300, torch.int64),
+                             (33, 701, 1, torch.int32),
+                             (70000, 37, 35, torch.int64)]:
         x2 = torch.from_numpy(rng.standard_normal((b, n, 2))
                               .astype(np.float32)).to(dev)
-        st = np.concatenate([[0, n - length],
-                             rng.integers(0, n - length + 1, b - 2)])
-        st = torch.from_numpy(st.astype(np.int32)).to(dev)
+        st = np.concatenate([[0, n - length, -7, n],
+                             rng.integers(-3, n - length + 4, b - 4)])
+        st = torch.from_numpy(st).to(dev, dt)
         got = sync.batch_slice_iq(x2, st, length)
         ref = sync.batch_slice_iq_plain(x2, st, length)
         torch.cuda.synchronize()
         slice_err = max(slice_err, float((got - ref).abs().max()))
         check(torch.equal(got, ref), f"slice kernel == plain ({b}, {n}, "
-                                     f"{length})")
-        print(f"slice [{b} x {n} -> {length}]: kernel == plain")
+                                     f"{length}, {dt})")
+        print(f"slice [{b} x {n} -> {length}], {dt} starts: kernel == "
+              f"plain")
     # the windows the acceptance sweep cut, as it cut them: per chain at
     # 20, 40 and 80 MHz
     for name, snr, calls in sweep_calls:
@@ -1587,19 +1604,26 @@ def main() -> int:
     times = {}
 
     def time_pair(key, shape, kernel, plain, nbytes, ops=0.0, library=None):
-        t = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
-             "plain_ms": cuda_ms(plain), "library_ms": None}
+        t = {"ms": cuda_ms(kernel), "host_us": host_us(kernel),
+             "device_ms": device_ms(kernel), "plain_ms": cuda_ms(plain),
+             "library_ms": None}
         t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
         lib = ""
         if library is not None:
-            t["library_ms"] = cuda_ms(library)
+            # the kernel's call and the library's in turns, one of each per
+            # round: their comparison sees the same host and card
+            t["ms"], t["library_ms"] = cuda_ms_turns([kernel, library])
+            t["library_host_us"] = host_us(library)
             t["library_device_ms"] = device_ms(library)
-            lib = (f", library {t['library_ms']:.4f} ms (device "
+            lib = (f", library {t['library_ms']:.4f} ms (issue "
+                   f"{t['library_host_us']:.2f} us, device "
                    f"{t['library_device_ms']:.4f} ms)")
         times[key] = t
-        print(f"time {key} {shape}: kernel {t['ms']:.4f} ms (device "
-              f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms{lib}, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) {tag}")
+        print(f"time {key} {shape}: kernel {t['ms']:.4f} ms (issue "
+              f"{t['host_us']:.2f} us, device {t['device_ms']:.4f} ms, "
+              f"{t['bound_ms'] / t['device_ms']:.3f} of the bound), plain "
+              f"{t['plain_ms']:.4f} ms{lib}, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}) {tag}")
 
     for name in ("data", "lsig", "data80", "mimo_vht4", "bucket_vht7"):
         x, cr, n_bits = vit_inputs[name]
@@ -1654,6 +1678,8 @@ def main() -> int:
           f"{probe['viterbi_device_ms']:.4f} ms); probe / viterbi device "
           f"time {probe['device_share']:.4f} {tag}")
     check(probe["launches"] > 0, "the probe run launched the probe kernel")
+    check(probe["device_ms"] < probe["viterbi_device_ms"],
+          "the probe, the Viterbi's skeleton, is faster than the Viterbi")
 
     # -- 9. shared-source slice kernel vs plain ------------------------------
     rng = np.random.default_rng(12)
@@ -1685,6 +1711,20 @@ def main() -> int:
                   nbytes=(window_samples(st, n_cap, length) * 8
                           + len(st) * (length * 8 + 4)),
                   library=lambda: torch.gather(wide, 1, idx))
+    # odd lengths (rows that start 8 bytes off 16), int64 starts, starts
+    # past both ends
+    for length, dt in ((1071, torch.int64), (4559, torch.int32),
+                       (1, torch.int64)):
+        st = torch.from_numpy(rng.integers(-5, n_cap - length + 6, 1000)).to(
+            dev, dt)
+        got = kg.capture_slice_iq_cuda(cap_dev, st, length)
+        ref = receiver.capture_windows_plain(cap_dev, st, length)
+        torch.cuda.synchronize()
+        shared_err = max(shared_err, float((got - ref).abs().max()))
+        check(torch.equal(got, ref), f"shared slice kernel == plain "
+                                     f"({length}, {dt})")
+        print(f"slice_shared [{n_cap} -> 1000 x {length}], {dt} starts: "
+              f"kernel == plain")
     del cap_dev
 
     # the SISO receiver's windows come from a one-chain capture, the
@@ -1807,6 +1847,18 @@ def main() -> int:
                   nbytes=2 * (window_samples(st, n_cap, length) * 8
                               + len(st) * length * 8) + len(st) * 4,
                   library=lambda: torch.gather(wide, 2, idx))
+    for length, dt in ((1071, torch.int64), (1999, torch.int32),
+                       (1, torch.int64)):
+        st = torch.from_numpy(rng.integers(-5, n_cap - length + 6, 1000)).to(
+            dev, dt)
+        got = kg.capture_slice_iq_mimo_cuda(cap_dev, st, length)
+        ref = receiver.capture_windows_mimo_plain(cap_dev, st, length)
+        torch.cuda.synchronize()
+        multi_err = max(multi_err, float((got - ref).abs().max()))
+        check(torch.equal(got, ref), f"multi-chain slice kernel == plain "
+                                     f"({length}, {dt})")
+        print(f"slice_multi [2 x {n_cap} -> 1000 x 2 x {length}], {dt} "
+              f"starts: kernel == plain")
     del cap_dev
 
     # -- 14. MimoReceiver on the dual-chain universal capture ----------------
@@ -2267,7 +2319,8 @@ def main() -> int:
                 "source": f"ieee80211_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[key],
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "device_ms": t["device_ms"], "bound_ms": t["bound_ms"],
+                "device_ms": t["device_ms"], "host_us": t["host_us"],
+                "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
     gather_tpu = "ieee80211_tpu/ops/pallas/gather.py:78"

@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's CUDA kernels at first use, and launch them.
 
 Every `*.cu` file under ieee80211_tpu_torch/csrc/ is compiled by nvcc for
 `sm_90a` into ONE shared library with a plain C interface (no PyTorch
@@ -8,6 +8,13 @@ sources and flags, so an edited source builds anew. Nothing here runs when
 the module is imported: the CPU tests import it without nvcc or a GPU.
 
 nvcc is found through $CUDA_HOME, else torch.utils.cpp_extension.CUDA_HOME.
+
+The launch path, shared by every wrapper in ops/cuda/ (`launch`): each
+launch function is resolved once, with its argument types; PyTorch's
+current stream of the tensor's card is read as a raw handle (not as a
+torch.cuda.Stream object); the card is switched only when it is not the
+current one. Each launch function returns cudaGetLastError(), and `launch`
+raises when it is not 0.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+
+import torch
 
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
@@ -27,17 +36,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    # name: argtypes (pointers and the stream as c_void_p: a bare Python int
-    # would pass as a 32-bit int and cut the pointer)
+# every extern "C" launch function of csrc/*.cu: its argument types, the
+# stream last (pointers and the stream as c_void_p: a bare Python int would
+# pass as a 32-bit int and cut the pointer)
+SIGNATURES = {
     "viterbi_r4_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "slice_iq_launch": [_P, _P, _P, _I, _I, _I, _P],
-    "slice_iq_shared_launch": [_P, _P, _P, _I, _I, _I, _P],
-    "slice_iq_multi_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "slice_iq_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "vit_floor_launch": [_P, _P, _I, _I, _P],
 }
 
 _lib = None
+_fns = {}        # launch function name -> its ctypes function
+_current_device = _raw_stream = None   # PyTorch's, bound at the first launch
 build_log = ""   # nvcc's output (ptxas register/shared-memory report)
 
 
@@ -73,11 +83,12 @@ def _build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on the first call."""
+    """The kernels' shared library, built on the first call, with the
+    argument types of every launch function set."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(_build()))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -87,8 +98,26 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error (cudaGetLastError)."""
-    if err != 0:
-        msg = lib.kernels_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+def _resolve(name: str):
+    """Launch function `name`, and PyTorch's device and stream getters (a
+    build without CUDA has none), bound once."""
+    global _current_device, _raw_stream
+    _current_device = torch._C._cuda_getDevice
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    fn = _fns[name] = getattr(library(), name)
+    return fn
+
+
+def launch(name: str, device: int, *args) -> None:
+    """Call launch function `name` with `args` and the current stream of
+    card `device` (an index), on that card; raise if it returned a CUDA
+    error. The caller has checked every argument."""
+    fn = _fns.get(name) or _resolve(name)
+    if device == _current_device():
+        err = fn(*args, _raw_stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _raw_stream(device))
+    if err:
+        msg = library().kernels_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

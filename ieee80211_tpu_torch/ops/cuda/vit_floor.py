@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import check, library
+from .build import launch
 
 LAUNCHES = 0   # kernel launches so far: a run can show that it went through
 K = 4          # trellis steps per block, as the Viterbi kernel's radix
@@ -19,21 +19,20 @@ def vit_floor_cuda(lp: torch.Tensor) -> torch.Tensor:
     int32 [B, 64], every entry n_blk, equal to
     `perf.vit_floor.vit_floor_plain(lp)`."""
     global LAUNCHES
-    if lp.device.type != "cuda":
+    if not lp.is_cuda:
         raise ValueError(f"floor probe needs a CUDA tensor, got {lp.device}")
-    if lp.dtype != torch.float32 or lp.dim() != 3 or lp.shape[2] != 2 * K:
+    if lp.dtype is not torch.float32 or lp.dim() != 3 or lp.shape[2] != 2 * K:
         raise ValueError(f"expected float32 [B, n_blk, {2 * K}], got "
                          f"{lp.dtype} {tuple(lp.shape)}")
     if not lp.is_contiguous():
         raise ValueError("LLR blocks must be contiguous")
     b, n_blk, _ = lp.shape
-    out = torch.empty((b, 64), dtype=torch.int32, device=lp.device)
+    out = lp.new_empty((b, 64), dtype=torch.int32)
     if b == 0:
         return out
-    lib = library()
-    with torch.cuda.device(lp.device):
-        err = lib.vit_floor_launch(lp.data_ptr(), out.data_ptr(), b, n_blk,
-                                   torch.cuda.current_stream().cuda_stream)
-    check(lib, err, "vit_floor_launch")
+    if lp.data_ptr() & 15:   # the kernel reads a block's LLRs as float4s
+        lp = lp.clone()
+    launch("vit_floor_launch", lp.get_device(), lp.data_ptr(), out.data_ptr(),
+           b, n_blk)
     LAUNCHES += 1
     return out

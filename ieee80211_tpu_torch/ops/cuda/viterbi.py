@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import check, library
+from .build import launch
 
 LAUNCHES = 0   # kernel launches so far: a run can show that it went through
 K = 4          # the kernel's radix
@@ -21,20 +21,21 @@ def viterbi_pairs_cuda(lp: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
     card: bits [B, T] int32, equal bit for bit to
     `ops.coding.viterbi_pairs_plain(lp, w0, w1, renorm)`."""
     global LAUNCHES
-    if lp.device.type != "cuda":
+    if not lp.is_cuda:
         raise ValueError(f"viterbi kernel needs a CUDA tensor, got "
                          f"{lp.device}")
-    if lp.dtype != torch.float32 or lp.dim() != 3 or lp.shape[2] != 2:
+    if lp.dtype is not torch.float32 or lp.dim() != 3 or lp.shape[2] != 2:
         raise ValueError(f"expected float32 [B, T, 2], got {lp.dtype} "
                          f"{tuple(lp.shape)}")
     if not lp.is_contiguous():
         raise ValueError("LLR pairs must be contiguous")
-    if tuple(w0.shape) != (64, 1 << K, K) or w1.shape != w0.shape:
+    if w0.shape != (64, 1 << K, K) or w1.shape != w0.shape:
         raise ValueError(f"the kernel is radix {K}: tables must be "
                          f"[64, {1 << K}, {K}], got {tuple(w0.shape)}")
-    if w0.device != lp.device or w1.device != lp.device:
+    device = lp.get_device()
+    if w0.get_device() != device or w1.get_device() != device:
         raise ValueError("radix tables must lie on the LLRs' device")
-    if (w0.dtype != torch.float32 or w1.dtype != torch.float32
+    if (w0.dtype is not torch.float32 or w1.dtype is not torch.float32
             or not (w0.is_contiguous() and w1.is_contiguous())):
         raise ValueError("radix tables must be contiguous float32")
     b, t_pad, _ = lp.shape
@@ -43,22 +44,20 @@ def viterbi_pairs_cuda(lp: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
     if renorm < 1:
         raise ValueError(f"renorm period must be >= 1, got {renorm}")
     n_blk = t_pad // K
-    bits = torch.empty((b, t_pad), dtype=torch.int32, device=lp.device)
+    bits = lp.new_empty((b, t_pad), dtype=torch.int32)
     if b == 0 or n_blk == 0:
         return bits
     # the kernel reads a block's LLRs, and a table row, as float4s
-    lp, w0, w1 = (a if a.data_ptr() % 16 == 0 else a.clone()
-                  for a in (lp, w0, w1))
+    if lp.data_ptr() & 15:
+        lp = lp.clone()
+    if w0.data_ptr() & 15:
+        w0 = w0.clone()
+    if w1.data_ptr() & 15:
+        w1 = w1.clone()
     # survivor decisions in device memory: 4 bits per state per block, one
     # 32-bit word per lane (states l and l + 32) per group of 4 blocks
-    dec = torch.empty((b, -(-n_blk // 4), 32), dtype=torch.int32,
-                      device=lp.device)
-    lib = library()
-    with torch.cuda.device(lp.device):
-        err = lib.viterbi_r4_launch(
-            lp.data_ptr(), w0.data_ptr(), w1.data_ptr(), dec.data_ptr(),
-            bits.data_ptr(), b, n_blk, renorm,
-            torch.cuda.current_stream().cuda_stream)
-    check(lib, err, "viterbi_r4_launch")
+    dec = lp.new_empty((b, -(-n_blk // 4), 32), dtype=torch.int32)
+    launch("viterbi_r4_launch", device, lp.data_ptr(), w0.data_ptr(),
+           w1.data_ptr(), dec.data_ptr(), bits.data_ptr(), b, n_blk, renorm)
     LAUNCHES += 1
     return bits

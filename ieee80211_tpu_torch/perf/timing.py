@@ -1,30 +1,64 @@
-"""CUDA-event timing of a callable on the card."""
+"""CUDA-event timing of a callable on the card, and the host's time to issue
+it."""
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 ITERS = 10
 WARMUP = 2
+HOST_ITERS = 1000
+HOST_SYNC_EVERY = 50
+
+
+def host_us(fn, iters: int = HOST_ITERS,
+            sync_every: int = HOST_SYNC_EVERY) -> float:
+    """The host's time to issue fn() in microseconds: the median of `iters`
+    calls' `time.perf_counter_ns`, with no synchronize inside a timed call.
+    The card is synchronized every `sync_every` calls, outside the timing,
+    so the launch queue never fills and blocks a call."""
+    for _ in range(sync_every):
+        fn()
+    torch.cuda.synchronize()
+    times = np.empty(iters, dtype=np.int64)
+    clock = time.perf_counter_ns
+    for i in range(iters):
+        t0 = clock()
+        fn()
+        times[i] = clock() - t0
+        if i % sync_every == sync_every - 1:
+            torch.cuda.synchronize()
+    return float(np.median(times)) / 1e3
 
 
 def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     """Median time of fn() in ms over `iters` runs after `warmup` runs, each
     between two CUDA events on the current stream (the host's launch cost is
     inside it)."""
+    return cuda_ms_turns([fn], iters, warmup)[0]
+
+
+def cuda_ms_turns(fns, iters: int = ITERS, warmup: int = WARMUP) -> list:
+    """cuda_ms of each callable of `fns`, timed in turns: one call of each
+    per round, so that a drift of the host or the card between rounds
+    falls on all of them alike."""
     for _ in range(warmup):
-        fn()
+        for fn in fns:
+            fn()
     torch.cuda.synchronize()
-    times = []
+    times = [[] for _ in fns]
     for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return float(np.median(times))
+        for t, fn in zip(times, fns):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            t.append(start.elapsed_time(stop))
+    return [float(np.median(t)) for t in times]
 
 
 def device_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:

@@ -4,14 +4,15 @@ replaced by one add, timed beside the real kernel on the same input.
     python -m ieee80211_tpu_torch.perf.vit_floor
 
 Port of perf_vit_floor.py (TPU kernel :14, `pallas_call` :37). The probe
-reads the same LLR blocks and runs the same block loop, double-buffered
-metrics and barriers as the first Viterbi kernel (one thread per state,
-four packets per 256-thread block), but stores no survivors and does no
-traceback. That kernel's skeleton is not the redesigned csrc/viterbi.cu's
-(one warp per packet, a branch-metric table per block), so the probe's
-time is no longer the floor of the Viterbi kernel's: it is reported beside
-it, as the cost of that skeleton alone. Needs a CUDA card: without one,
-main() exits 1.
+runs csrc/viterbi.cu's skeleton (one warp per packet and per thread block,
+lane l on states l and l + 32, LLRs staged through shared memory a chunk
+ahead, path metrics double-buffered in shared memory with one __syncwarp
+per block) with the add-compare-select taken out: no branch-metric table,
+no candidates, no renorm, no survivors, no traceback. Its device time on
+the Viterbi kernel's own input is therefore the floor under that kernel's,
+and `device_share` (probe / Viterbi device time) the part of the Viterbi's
+time that its skeleton alone takes. Needs a CUDA card: without one, main()
+exits 1.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 from ..ops import coding
 from ..ops.cuda import vit_floor as kf
 from ..ops.cuda.viterbi import viterbi_pairs_cuda
-from .timing import cuda_ms, device_ms
+from .timing import cuda_ms, device_ms, host_us
 
 # The TPU probe's shape: 1024 packets x 1176 blocks of 4 trellis steps
 # (4704 steps, the headline 4680-bit DATA decode rounded up) x 8 LLRs.
@@ -66,7 +67,8 @@ def measure(device) -> dict:
     version, and the radix-4 Viterbi kernel on the same memory read as
     depunctured pairs [N_PACKETS, 4 * N_BLK, 2]: each kernel per wrapper
     call between CUDA events ("ms", "viterbi_ms") and on the device alone
-    ("device_ms", "viterbi_device_ms")."""
+    ("device_ms", "viterbi_device_ms"), and the host's time to issue one
+    probe call ("host_us")."""
     lp = probe_input(device)
     got = kf.vit_floor_cuda(lp)
     ref = vit_floor_plain(lp)
@@ -80,6 +82,7 @@ def measure(device) -> dict:
     floor_ms = cuda_ms(lambda: kf.vit_floor_cuda(lp))
     floor_dev = device_ms(lambda: kf.vit_floor_cuda(lp))
     launches = kf.LAUNCHES
+    floor_host = host_us(lambda: kf.vit_floor_cuda(lp))
 
     def vit():
         return viterbi_pairs_cuda(pairs, w0, w1, coding.RENORM)
@@ -88,7 +91,8 @@ def measure(device) -> dict:
     plain_ms = cuda_ms(lambda: vit_floor_plain(lp), iters=3, warmup=1)
     return {"shape": tuple(lp.shape), "launches": launches,
             "max_abs_err": int((got - ref).abs().max()),
-            "ms": floor_ms, "device_ms": floor_dev, "plain_ms": plain_ms,
+            "ms": floor_ms, "host_us": floor_host, "device_ms": floor_dev,
+            "plain_ms": plain_ms,
             "viterbi_ms": vit_ms, "viterbi_device_ms": vit_dev,
             "device_share": floor_dev / vit_dev}
 

@@ -95,7 +95,7 @@ def _build(name: str) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
     lib = ctypes.CDLL(str(so))
-    lib.viterbi_r4_launch.argtypes = build._SIGNATURES["viterbi_r4_launch"]
+    lib.viterbi_r4_launch.argtypes = build.SIGNATURES["viterbi_r4_launch"]
     lib.viterbi_r4_launch.restype = ctypes.c_int
     return lib
 
