@@ -124,7 +124,20 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      cap), tests/test_sharded_capture.py's 80 MHz case;
  31. `perf.scaling.measure_scaling()` on one rank: {1: samples/s} (N >= 2
      cannot be measured on one card);
- 32. the kernels line.
+ 32. the port's bench (perf/bench.py) for one round on the inputs that
+     phases 5-22 built (its input functions are memoized): every row's
+     every call gated, bench.py's keys each > 0; its JSON line;
+ 33. the step's stages (perf/stages.py) at batch 1024, each alone on the
+     step's own tensors, beside the whole step, and the TPU-era layouts
+     (DFT matmul, banded-matmul moving sums, one-hot descramble) beside one
+     PyTorch call each, checked to agree;
+ 34. one rep of the streams' host-floor bracket (perf/floor.py): ingest,
+     + SIG dispatch and fetch, full decode, for both triggers and the
+     dual-chain receiver;
+ 35. the branch-dispatch floor (perf/branch_floor.py) at 8 branches: the
+     auto loop (branch loop, generic=True) and the auto2 loop (branch_cap
+     None, 16, 8) on 64 planted packets, each decoding every packet;
+ 36. the kernels line.
 The MU shapes (a SIG-B group of 26 bits, the MU stream's DATA bucket, and
 the MU window lengths of both capture-slice modes) join phases 3, 9 and 13.
 The line before the last is a JSON object of the kernels; the last line is
@@ -151,7 +164,7 @@ from ieee80211_tpu_torch.api import descriptors as wire
 from ieee80211_tpu_torch.examples import (gen_test_captures, inspect_bin,
                                           mu_sounding_demo, stream_decode)
 from ieee80211_tpu_torch.mac import (MacConfig, aggregate_vht, build_udp_mpdu,
-                                     deaggregate_ht, deaggregate_vht)
+                                     deaggregate_vht)
 from ieee80211_tpu_torch.mu import (map_q_to_grid, ndp_ltf_channel,
                                     vht_channel_feedback, zf_q)
 from ieee80211_tpu_torch.mu import sounding
@@ -169,7 +182,9 @@ from ieee80211_tpu_torch.parallel.sharded import (
     HALO, branch_window_len, sharded_capture_decode_auto,
     sharded_capture_decode_auto2)
 from ieee80211_tpu_torch.perf import acceptance as acc
-from ieee80211_tpu_torch.perf import pdr, vit_floor
+from ieee80211_tpu_torch.perf import (bench, branch_floor, floor, pdr, stages,
+                                      vit_floor)
+from ieee80211_tpu_torch.perf.branch_floor import loop_mpdus
 from ieee80211_tpu_torch.perf.scaling import measure_scaling
 from ieee80211_tpu_torch.perf.timing import (cuda_ms, cuda_ms_turns,
                                              device_ms, host_us, kernels_ms)
@@ -178,7 +193,6 @@ from ieee80211_tpu_torch.rx import (MimoDataDecoder, MimoReceiver,
                                     get_mimo_decoder, receiver)
 from ieee80211_tpu_torch.rx.generic import GenericSisoDecoder
 from ieee80211_tpu_torch.specs import BW, CR, F, Mod
-from ieee80211_tpu_torch.specs.crc import fcs_ok
 from ieee80211_tpu_torch.specs.modulation import (ppdu_params_aggregate,
                                                   ppdu_params_nonaggregate)
 from ieee80211_tpu_torch.tx import (MuTxPipeline, TxPipeline, finalize,
@@ -198,26 +212,23 @@ VIT_OPS_PER_CANDIDATE = 2   # an add and a compare-select
 # reductions sum in another order there
 CFO_TOL = 1e-5    # rad/sample
 SNR_TOL = 1e-2    # dB
-HEADLINE = dict(fmt="VHT", mcs=7, bw=20, payload=500, seed=0,
-                cfo_hz=15000.0, batch=1024)
-WIDEBAND = dict(fmt="VHT", mcs=9, bw=80, payload=1800, seed=1,
-                cfo_hz=60000.0, batch=256)
+HEADLINE, WIDEBAND = bench.HEADLINE, bench.WIDEBAND   # bench.py's RX rows
 # the streaming receiver on the card against its CPU run of the same capture
 CFO_HZ_TOL = 1.0   # Hz: the sync's float32 CFO (1e-6 rad/sample) x fs / 2pi
 EVM_TOL = 1e-2     # dB, on a copy with 30 dB SNR. A noiseless packet's EVM
 EVM_FLOOR = 100.0  # SNR measures float32 rounding (~130 dB) and differs by
                    # dB between devices: there both must only exceed 100 dB
-MAC = dict(addr1="f4:69:d5:80:0f:a0", addr2="00:c0:ca:b1:5b:e1",
-           addr3="f4:69:d5:80:0f:a0")
-N_API = 20                     # bench.py's decode_capture capture
-N_COPY, N_STREAM = 50, 6       # bench.py's stream: 6 x 50 copies of it
-N_MIMO_SEG, N_MIMO_REP = 12, 120   # bench.py's dual-chain stream: 6 x 120
-                                   # copies of a 12-packet segment
-N_MU_SEG, N_MU_REP, N_MU_CAP = 10, 60, 4   # bench.py's MU stream
-MU_GID = 2
+MAC = bench.MAC
+# bench.py's capture rows (perf/bench.py builds them): its 20-packet capture,
+# 50 copies of it per stream capture, the MU stream's 4 captures of 60
+# copies of a 10-packet segment
+N_API, N_COPY = bench.FULL.n_api, bench.FULL.n_copy
+N_MU_SEG, N_MU_REP = bench.FULL.n_mu_seg, bench.FULL.n_mu_rep
+N_MU_CAP = bench.FULL.n_mu_cap
+MU_GID = bench.MU_GID
 # a TX waveform on the card against the golden complex128 TX: cuFFT's
 # float32 rounding (the CPU run is held to 2e-6 in tests/test_torch_tx.py)
-TX_TOL = 1e-5
+TX_TOL = bench.TX_TOL
 NDP_TOL = 1e-4     # a channel report's samples, card against CPU run
 # the sharded capture loop on one rank: the frontend's autocorrelation
 # against stf_autocorr of the whole capture (tests/test_parallel.py:37)
@@ -265,63 +276,13 @@ def window_samples(starts, n: int, length: int) -> int:
 
 def make_batch(fmt: str, mcs: int, bw: int, payload: int, seed: int,
                cfo_hz: float, batch: int, device=None):
-    """bench.py's RX input without JAX: one UDP MPDU in a VHT A-MPDU from the
-    golden TX, triggered 8 samples early, repeated over the batch.
-    Returns (RxPipeline on `device`, x2 [B, W, 2] float32, t0 [B] int32,
-    mpdu)."""
-    q = bw // 20
-    cfg = MacConfig(subtype=8, addr1="f4:69:d5:80:0f:a0",
-                    addr2="00:c0:ca:b1:5b:e1", addr3="f4:69:d5:80:0f:a0",
-                    seq=2704)
-    body = bytes(np.random.default_rng(seed).integers(0, 256, payload,
-                                                      dtype=np.uint8))
-    mpdu = build_udp_mpdu(body, cfg)
-    ampdu = aggregate_vht([mpdu])
-    mod = Mod(F[fmt], mcs, {20: BW.BW20, 40: BW.BW40, 80: BW.BW80}[bw], 1)
-    pp = ppdu_params_aggregate(mod, len(ampdu))
-    wave = finalize(gen_ampdu(ampdu, mod).waveform, multiplier=0.2,
-                    cfo_hz=cfo_hz, gap=True, gap_len=64 * q)[0]
-    pipe = RxPipeline(mod, pp.n_sym, pp.psdu_len, device=device)
-    w = pipe.window_len()
-    seg = wave[(64 - 8) * q:]
-    x = np.zeros((batch, w), dtype=np.complex64)
-    x[:, :min(w, len(seg))] = seg[:min(w, len(seg))]
-    return pipe, c2r(x), np.zeros(batch, dtype=np.int32), mpdu
-
-
-def api_capture():
-    """bench.py's 20-packet capture (bench.py:362-381): seed 3, HT MCS5
-    non-aggregated alternating with VHT MCS7 A-MPDU, UDP payloads of
-    100-900 B, CFO uniform in +-50 kHz, gap 800. Returns (capture, mpdus)."""
-    cfg = MacConfig(subtype=8, seq=2704, **MAC)
-    rng = np.random.default_rng(3)
-    parts, mpdus = [], []
-    for i in range(N_API):
-        pl = bytes(rng.integers(0, 256, int(rng.integers(100, 900)),
-                                dtype=np.uint8))
-        if i % 2:
-            mpdus.append(build_udp_mpdu(pl, cfg))
-            wv = gen_ampdu(aggregate_vht([mpdus[-1]]), Mod(F.VHT, 7)).waveform
-        else:
-            mpdus.append(build_udp_mpdu(pl, MacConfig(**MAC)))
-            wv = gen_mpdu(mpdus[-1], Mod(F.HT, 5)).waveform
-        parts.append(finalize(wv, multiplier=0.2, cfo_hz=float(
-            rng.uniform(-5e4, 5e4)), gap=True, gap_len=800)[0])
-    return np.concatenate(parts), mpdus
-
-
-def stream_captures(cap):
-    """bench.py's stream (bench.py:406-416): six captures, each 50 copies
-    of `cap` with zero gaps U[16, 512) (seed 7) and 64 + 32k leading
-    zeros."""
-    rng = np.random.default_rng(7)
-    parts = []
-    for _ in range(N_COPY):
-        parts.append(np.zeros(int(rng.integers(16, 512)), np.complex64))
-        parts.append(cap)
-    big = np.concatenate(parts)
-    return [np.concatenate([np.zeros(64 + 32 * k, np.complex64), big])
-            for k in range(N_STREAM)]
+    """bench.py's RX input without JAX (perf/bench.py::rx_batch, memoized:
+    the port's bench reuses it). Returns (RxPipeline on `device`, x2
+    [B, W, 2] float32, t0 [B] int32, mpdu)."""
+    b = bench.rx_batch(fmt=fmt, mcs=mcs, bw=bw, payload=payload, seed=seed,
+                       cfo_hz=cfo_hz, batch=batch)
+    return (RxPipeline(b.mod, b.n_sym, b.psdu_len, device=device), b.x2,
+            b.t0, b.mpdu)
 
 
 def wideband_capture(bw: int):
@@ -492,36 +453,6 @@ def hard_channel():
     return cap, w, mod, pp.n_sym, exp, mpdu
 
 
-def mimo_stream_captures(reps: int = N_MIMO_REP):
-    """bench.py's dual-chain stream (bench.py:460-490): a segment of 12
-    packets with UDP payloads of 100-700 B (seed 15), VHT MCS7 SISO on the
-    flat channel h1 alternating with VHT MCS4 2x2 A-MPDUs through h22, CFO
-    uniform in +-40 kHz, 800 zeros before each; six captures of `reps`
-    copies with 64 + 32k leading zeros. Returns (captures, packets per
-    capture, the segment's [(mod, mpdu)])."""
-    cfg = MacConfig(subtype=8, seq=2704, **MAC)
-    h1 = np.array([0.9 - 0.3j, 0.5 + 0.8j])
-    h22 = np.array([[1.1 + 0.2j, 0.3 - 0.5j], [-0.4 + 0.6j, 0.9 + 0.1j]])
-    rng = np.random.default_rng(15)
-    parts, seg = [], []
-    for i in range(N_MIMO_SEG):
-        pl = bytes(rng.integers(0, 256, int(rng.integers(100, 700)),
-                                dtype=np.uint8))
-        mp = build_udp_mpdu(pl, cfg)
-        mod = Mod(F.VHT, 4, BW.BW20, 2) if i % 2 else Mod(F.VHT, 7)
-        wv = finalize(gen_ampdu(aggregate_vht([mp]), mod).waveform,
-                      multiplier=0.2, cfo_hz=float(rng.uniform(-4e4, 4e4)),
-                      gap=False)
-        w2 = h22 @ wv if i % 2 else np.stack([h1[0] * wv[0], h1[1] * wv[0]])
-        parts.append(np.zeros((2, 800), np.complex64))
-        parts.append(w2.astype(np.complex64))
-        seg.append((mod, mp))
-    big = np.concatenate([np.concatenate(parts, axis=1)] * reps, axis=1)
-    return ([np.concatenate([np.zeros((2, 64 + 32 * k), np.complex64), big],
-                            axis=1) for k in range(N_STREAM)],
-            N_MIMO_SEG * reps, seg)
-
-
 def counted(fn):
     """fn() under the sync debug mode. Returns (its result, implicit
     syncs)."""
@@ -569,92 +500,20 @@ def best_of_3(srx, caps):
     return min(dts), dts, sum(len(r) for r in stream)
 
 
-CFG_QOS = MacConfig(subtype=8, seq=2704, **MAC)
+CFG_QOS = bench.CFG_QOS
 
 
 def tx_cases():
     """bench.py's TX row (L MCS0, the 30-byte UDP MPDU) and VHT MCS7 with
     2 streams on the same MPDU in an A-MPDU: [(name, mod, pp, input bytes,
     golden waveform)]."""
-    mpdu = build_udp_mpdu(b"123456789012345678901234567890",
-                          MacConfig(seq=2704, **MAC))
-    l0 = Mod(F.L, 0)
+    l0, pp, mpdu, wave = bench.tx_input()
     ampdu = aggregate_vht([build_udp_mpdu(b"123456789012345678901234567890",
                                           CFG_QOS)])
     v7 = Mod(F.VHT, 7, BW.BW20, 2)
-    return [("L MCS0", l0, ppdu_params_nonaggregate(l0, len(mpdu)), mpdu,
-             gen_mpdu(mpdu, l0).waveform),
+    return [("L MCS0", l0, pp, mpdu, wave),
             ("VHT MCS7 2x2", v7, ppdu_params_aggregate(v7, len(ampdu)),
              ampdu, gen_ampdu(ampdu, v7).waveform)]
-
-
-def rows_on(data: bytes, batch: int, dev) -> torch.Tensor:
-    return torch.from_numpy(np.tile(np.frombuffer(data, np.uint8),
-                                    (batch, 1))).to(dev)
-
-
-def max_err(out: torch.Tensor, want: np.ndarray) -> float:
-    """max |out - want| over every row of a [B, nSS, N, 2] waveform."""
-    got = out.cpu().numpy()
-    return float(np.abs(got[..., 0] + 1j * got[..., 1] - want[None]).max())
-
-
-def mu_sta_window():
-    """bench.py's MU-STA input (bench.py:281-320): a 2-user VHT MCS4 PPDU
-    (500 B payloads, seed 4, identity Q, group 2) as station 0 hears it,
-    triggered 8 samples early. Returns (mod, n_sym, psdu_len, window [W]
-    complex64, mpdu)."""
-    rng = np.random.default_rng(4)
-    mpdus = [build_udp_mpdu(bytes(rng.integers(0, 256, 500, dtype=np.uint8)),
-                            CFG_QOS) for _ in range(2)]
-    amps = [aggregate_vht([m]) for m in mpdus]
-    mods = [Mod(F.VHT, 4, BW.BW20, 1)] * 2
-    qi = np.tile(np.eye(2, dtype=np.complex64)[None], (64, 1, 1))
-    wave = finalize(gen_ampdu_mu(amps, mods, bfq=qi, group_id=MU_GID).waveform,
-                    multiplier=0.2, cfo_hz=-9000.0, gap=True, gap_len=64)
-    pps = [ppdu_params_aggregate(m, len(a)) for m, a in zip(mods, amps)]
-    n_sym = max(p.n_sym for p in pps)
-    w = 192 + 448 + 160 + 80 + 80 * n_sym + 80
-    x = np.zeros(w, np.complex64)
-    seg = wave[0, 64 - 8:]
-    x[:min(w, len(seg))] = seg[:min(w, len(seg))]
-    return mods[0], n_sym, pps[0].psdu_len, x, mpdus[0]
-
-
-def mu_stream_captures():
-    """bench.py's MU stream (bench.py:514-545): a segment of 10 packets
-    (seed 21), VHT MCS7 SU alternating with 2-user MU PPDUs (VHT MCS4 +
-    MCS2, 400 B / 300 B payloads, identity Q, group 2; station 0 hears chain
-    0), CFO uniform in +-30 kHz, 800 zeros before each; four captures of 60
-    copies with 64 + 32k leading zeros. Returns (captures, the MU MPDUs and
-    the SU MPDUs of one capture, in order)."""
-    rng = np.random.default_rng(21)
-    qi = np.tile(np.eye(2, dtype=np.complex64)[None], (64, 1, 1))
-    parts, mu_mpdus, su_mpdus = [], [], []
-    for i in range(N_MU_SEG):
-        m0 = build_udp_mpdu(bytes(rng.integers(0, 256, 400, dtype=np.uint8)),
-                            CFG_QOS)
-        m1 = build_udp_mpdu(bytes(rng.integers(0, 256, 300, dtype=np.uint8)),
-                            CFG_QOS)
-        if i % 2:
-            tx = gen_ampdu_mu([aggregate_vht([m0]), aggregate_vht([m1])],
-                              [Mod(F.VHT, 4, BW.BW20, 1),
-                               Mod(F.VHT, 2, BW.BW20, 1)],
-                              bfq=qi, group_id=MU_GID)
-            wv = finalize(tx.waveform, multiplier=0.2, cfo_hz=float(
-                rng.uniform(-3e4, 3e4)), gap=False)[0]
-            mu_mpdus.append(m0)
-        else:
-            wv = finalize(gen_ampdu(aggregate_vht([m0]),
-                                    Mod(F.VHT, 7)).waveform, multiplier=0.2,
-                          cfo_hz=float(rng.uniform(-3e4, 3e4)), gap=False)[0]
-            su_mpdus.append(m0)
-        parts.append(np.zeros(800, np.complex64))
-        parts.append(wv.astype(np.complex64))
-    big = np.concatenate(parts * N_MU_REP)
-    caps = [np.concatenate([np.zeros(64 + 32 * k, np.complex64), big])
-            for k in range(N_MU_CAP)]
-    return caps, mu_mpdus * N_MU_REP, su_mpdus * N_MU_REP
 
 
 def mu_stream_shapes():
@@ -743,7 +602,7 @@ def closed_loop(n_user: int, mcss, dev):
     ampdus = [aggregate_vht([m]) for m in mpdus]
     tx = MuTxPipeline([Mod(F.VHT, m, BW.BW20, 1) for m in mcss],
                       [len(a) for a in ampdus], group_id=5, device=dev)
-    out = tx.step([rows_on(a, 1, dev) for a in ampdus],
+    out = tx.step([bench.rows_on(a, 1, dev) for a in ampdus],
                   torch.from_numpy(c2r(q.astype(np.complex64))).to(dev))
     wave = out[0].cpu().numpy()
     cap = finalize(wave[..., 0] + 1j * wave[..., 1], multiplier=0.3,
@@ -1076,38 +935,6 @@ def wideband_loop_capture():
     for r in range(2):
         cap[r, 256 + 128 * r:256 + 128 * r + len(wave)] += wave
     return cap, mod, n_sym, w, mpdu
-
-
-def loop_mpdus(out, row: int = 0, psdu_len=None):
-    """The MPDUs of one row's `ok` windows whose FCS holds, in time order,
-    as the receivers assemble them (`assemble_psdu`: VHT and MU PSDUs are
-    A-MPDUs, HT ones when their aggregation bit is set); `ok` is SIG
-    consistency, and the FCS drops re-trigger junk, as
-    tests/test_sharded_capture.py applies it. psdu_len: the one length of a
-    loop without a planner. Returns [(window, fmt, [mpdu, ...])]."""
-    ok = out["ok"][row].cpu().numpy()
-    bits = out["bits"][row].cpu().numpy().astype(np.uint8)
-    n = len(ok)
-    fmt = out["fmt"][row].cpu().numpy() if "fmt" in out else np.zeros(n)
-    vht = fmt == 2
-    if "mu" in out:
-        vht |= out["mu"][row].cpu().numpy()
-    ht_agg = (out["ampdu"][row].cpu().numpy() if "ampdu" in out
-              else np.zeros(n, bool))
-    lens = (np.full(n, psdu_len) if psdu_len is not None
-            else out["psdu_len"][row].cpu().numpy())
-    got = []
-    for j in np.flatnonzero(ok):
-        psdu = np.packbits(bits[j, 16:16 + int(lens[j]) * 8],
-                           bitorder="little").tobytes()
-        if vht[j] or ht_agg[j]:
-            subs = (deaggregate_vht if vht[j] else deaggregate_ht)(psdu)
-            mpdus = [s.mpdu for s in subs if s.fcs_ok]
-        else:
-            mpdus = [psdu] if fcs_ok(psdu) else []
-        if mpdus:
-            got.append((int(j), int(fmt[j]), mpdus))
-    return got
 
 
 def host_ms(fn, iters: int = 3) -> float:
@@ -1733,7 +1560,7 @@ def main() -> int:
     mimo_kernels = ("viterbi", "slice", "slice_multi")
 
     # -- 10. decode_capture on bench.py's 20-packet capture ------------------
-    api_cap, api_mpdus = api_capture()
+    api_cap, api_mpdus = bench.api_capture(bench.FULL)
     rx = SisoReceiver(device=dev)
     reset()
     res = rx.decode_capture(api_cap)
@@ -1772,7 +1599,7 @@ def main() -> int:
               f"every {bw} MHz packet decodes")
 
     # -- 12. the stream at full width -------------------------------------
-    caps = stream_captures(api_cap)
+    caps = bench.stream_captures(bench.FULL)
     total = sum(len(c) for c in caps)
     print(f"stream: {len(caps)} captures of {len(caps[0])}-"
           f"{len(caps[-1])} samples, {N_API * N_COPY} packets each; "
@@ -1939,7 +1766,7 @@ def main() -> int:
           f"auto decodes it")
 
     # -- 17. the dual-chain stream at full width -----------------------------
-    mcaps, mwant, mseg = mimo_stream_captures()
+    mcaps, mwant, mseg = bench.mimo_stream_captures(bench.FULL)
     mtotal = sum(c.shape[1] for c in mcaps)
     print(f"dual-chain stream: {len(mcaps)} captures of 2 x "
           f"{mcaps[0].shape[1]}-{mcaps[-1].shape[1]} samples, {mwant} "
@@ -1992,10 +1819,10 @@ def main() -> int:
     # -- 18. TxPipeline -------------------------------------------------------
     for name, mod, pp, data, want in tx_cases():
         txp = TxPipeline(mod, pp, device=dev)
-        psdu = rows_on(data, 1024, dev)
+        psdu = bench.rows_on(data, 1024, dev)
         with torch.inference_mode():
             out = txp.step(psdu)
-            err = max_err(out, want)
+            err = bench.tx_err(out, want)
             check(tuple(out.shape) == (1024, mod.nSS, txp.n_samp, 2)
                   and txp.n_samp == want.shape[-1] and err <= TX_TOL,
                   f"TX {name}: [1024] rows == golden within {TX_TOL}")
@@ -2006,18 +1833,13 @@ def main() -> int:
               f"per stream {tag}")
 
     # -- 19. MuTxPipeline -----------------------------------------------------
-    rng = np.random.default_rng(2)
-    ampdus = [aggregate_vht([build_udp_mpdu(bytes(rng.integers(
-        0, 256, n, dtype=np.uint8)), CFG_QOS)]) for n in (500, 300)]
-    mods = [Mod(F.VHT, 4, BW.BW20, 1), Mod(F.VHT, 2, BW.BW20, 1)]
-    qm, _ = np.linalg.qr(rng.normal(size=(64, 2, 2))
-                         + 1j * rng.normal(size=(64, 2, 2)))
-    mtx = MuTxPipeline(mods, [len(a) for a in ampdus], device=dev)
-    psdus = [rows_on(a, 256, dev) for a in ampdus]
+    mods, ampdus, qm, mu_wave = bench.mu_tx_input()
+    mtx = MuTxPipeline(list(mods), [len(a) for a in ampdus], device=dev)
+    psdus = [bench.rows_on(a, 256, dev) for a in ampdus]
     q2 = torch.from_numpy(c2r(qm.astype(np.complex64))).to(dev)
     with torch.inference_mode():
         out = mtx.step(psdus, q2)
-        err = max_err(out, gen_ampdu_mu(ampdus, mods, qm).waveform)
+        err = bench.tx_err(out, mu_wave)
         check(tuple(out.shape) == (256, 2, mtx.n_samp, 2) and err <= TX_TOL,
               f"MU TX: [256] rows == gen_ampdu_mu within {TX_TOL}")
         ms = cuda_ms(lambda: mtx.step(psdus, q2))
@@ -2044,7 +1866,7 @@ def main() -> int:
               f"launches {got}")
 
     # -- 21. MuStaDecoder at batch 256 ---------------------------------------
-    smod, s_nsym, s_len, x4, s_mpdu = mu_sta_window()
+    smod, s_nsym, s_len, x4, s_mpdu = bench.mu_sta_input()
     dec4 = sounding.MuStaDecoder(smod, s_nsym, s_len, 0).to(dev)
     band = receiver.SigTables(1).to(dev).band
     x4d = torch.from_numpy(np.tile(c2r(x4)[None], (256, 1, 1))).to(dev)
@@ -2071,7 +1893,7 @@ def main() -> int:
           f"{256 * len(x4) / (ms * 1e-3):.6g} samples/s {tag}")
 
     # -- 22. the MU stream ---------------------------------------------------
-    mu_caps, want_mu, want_su = mu_stream_captures()
+    mu_caps, want_mu, want_su = bench.mu_stream_captures(bench.FULL)
     mu_total = sum(len(c) for c in mu_caps)
     murx = SisoReceiver(mu_pos=0, mu_gid=MU_GID, device=dev)
 
@@ -2313,7 +2135,76 @@ def main() -> int:
     loop_phases(dev, tag, launches, (cell, pipe, x2, t0, outs[20]), loop_cap,
                 api_mpdus, loop_mcap, mseg, mwant)
 
-    # -- 32. the kernels line ------------------------------------------------
+    # -- 32. the port's bench, one round -------------------------------------
+    reset()
+    t = time.perf_counter()
+    line = bench.run(rounds=1, device=dev)
+    got = read(launches)
+    extra = line["extra"]
+    by_det = extra["api_stream_mimo_sps_by_detector"]
+    rates = [line["value"]] + list(by_det.values()) + [
+        v for k, v in extra.items() if not isinstance(v, (str, dict))]
+    check(tuple(extra) == bench.EXTRA_KEYS and extra["backend"] == "cuda"
+          and set(by_det) == {"auto", "zf", "ml"} and min(rates) > 0,
+          f"perf.bench: bench.py's keys, each > 0 ({line})")
+    check(all(got[k] > 0 for k in ("viterbi", "slice", "slice_shared",
+                                   "slice_multi")),
+          f"perf.bench launched every receive kernel {got}")
+    print(f"perf.bench, 1 round ({time.perf_counter() - t:.1f} s, every "
+          f"row's every call gated): launches {got}")
+    print(json.dumps(line))
+
+    # -- 33. the step's stages and the TPU-era layouts ----------------------
+    reset()
+    prof = stages.measure(HEADLINE["batch"], device=dev)
+    got = read(launches)
+    st = prof["stages"]
+    for name in stages.STAGES + ("step",):
+        ms = st[name]
+        busy = ("not measured" if ms["device_ms"] is None else
+                f"{ms['device_ms']:.4f} ms in {ms['launches']} kernels")
+        print(f"stage {name} [{prof['batch']} x {prof['window']}]: call "
+              f"{ms['ms']:.4f} ms, device {busy}, hand-written kernels "
+              f"{ms['hand_launches']} {tag}")
+    check(st["step"]["hand_launches"] == {"viterbi": 2, "slice": 2}
+          and st["viterbi"]["hand_launches"]["viterbi"] == 1
+          and st["window"]["hand_launches"]["slice"] == 1,
+          f"the stages launch the step's kernels {st['step']}")
+    print(f"step {st['step']['ms']:.4f} ms against the sum of its stages "
+          f"{prof['stage_sum']['ms']:.4f} ms (device "
+          f"{prof['stage_sum']['device_ms']}) {tag}")
+    for name, lay in prof["layouts"].items():
+        print(f"layout {name} {lay['shape']}: the step's form {lay['ms']:.4f} "
+              f"ms (device {lay['device_ms']:.4f}), one PyTorch call "
+              f"{lay['alt_ms']:.4f} ms (device {lay['alt_device_ms']:.4f}); "
+              f"max |d| {lay['max_abs_err']:.3g} of {lay['scale']:.3g} "
+              f"(tolerance {lay['tol']}) {tag}")
+
+    # -- 34. the streams' host floor, one rep -------------------------------
+    reset()
+    br = floor.bracket(1, device=dev)
+    got = read(launches)
+    check(got["slice_shared"] > 0 and got["slice_multi"] > 0,
+          f"floor bracket launches {got}")
+    for name, row in floor.summary(br).items():
+        print(f"floor {name}: " + " | ".join(
+            f"{p} {row[p]['ms']:.4f} ms ({row[p]['samples_per_s']:.6g} "
+            f"samples/s)" for p in floor.PASSES) + f" {tag}")
+
+    # -- 35. the loops' branch-dispatch floor at 8 branches -----------------
+    reset()
+    bf = branch_floor.measure((8,), device=dev)
+    got = read(launches)
+    check(got["viterbi"] > 0 and got["slice_shared"] > 0
+          and got["slice_multi"] > 0, f"branch floor launches {got}")
+    for label, t in list(bf["branch_loop"][8].items()) + list(
+            bf["routed"].items()):
+        if isinstance(t, dict):
+            print(f"branch floor 8 branches {label}: {t['packets']}/"
+                  f"{bf['packets']} packets, {t['ms']:.4f} ms per call, "
+                  f"{t['samples_per_s']:.6g} samples/s {tag}")
+
+    # -- 36. the kernels line ------------------------------------------------
     def entry(name, source, replaces, key, err, t):
         return {"name": name, "route": "cuda",
                 "source": f"ieee80211_tpu_torch/csrc/{source}",

@@ -136,57 +136,96 @@ class RxStep(nn.Module):
     def _fft(self, x: torch.Tensor) -> torch.Tensor:
         return demod.fft_syms(x, self.dft_re, self.dft_im)
 
-    def forward(self, x2: torch.Tensor, t0: torch.Tensor):
-        mod, q, n_sym = self.mod, self.q, self.n_sym
+    # -- the step's stages, in order: forward composes them, and
+    # perf/stages.py times each one alone on the step's own tensors --------
+    def sync_front(self, x2: torch.Tensor, t0: torch.Tensor):
+        """1. STF coarse CFO, LTF plateau timing, fine CFO: (ltf_start,
+        cfo, snr)."""
+        return sync.sync_front_iq(x2, t0, self.band, q=self.q)
+
+    def window(self, x2: torch.Tensor, ltf_start: torch.Tensor):
+        """2. ONE aligned window slice per packet, [B, z_len, 2]: LTF
+        through DATA, from ltf_start - 16q. Everything downstream is static
+        slicing of it."""
+        return sync.batch_slice_iq(x2, ltf_start - 16 * self.q, self.z_len())
+
+    def derotate(self, z2: torch.Tensor, cfo: torch.Tensor):
+        """3. The CFO ramp: z [B, z_len] complex64. Its constant phase
+        offset against absolute time cancels in equalization."""
+        return r2c(z2) * sync.cfo_ramp(cfo, z2.shape[1])
+
+    def symbol_windows(self, z: torch.Tensor):
+        """The OFDM symbol windows of z: L-LTF [B, 2, N], L-SIG [B, 1, N],
+        HT/VHT-LTF [B, 1, N] (None for legacy) and DATA [B, n_sym, N]."""
+        q = self.q
         # data-symbol window shift 4q, not the reference's 8q: it re-centres
         # the cyclic-prefix margin for multipath (CLAUDE.md, "RX
         # correctness (round 5)"); clean-channel decodes are unchanged
         nfft, gi, sh = 64 * q, 16 * q, 4 * q
-        ltf_start, cfo, snr = sync.sync_front_iq(x2, t0, self.band, q=q)
 
-        # ONE aligned window slice; everything downstream is static slicing
-        # of z (anchor = ltf_start - 16q). The CFO ramp's constant phase
-        # offset vs absolute time cancels in equalization.
-        zlen = self.z_len()
-        z = r2c(sync.batch_slice_iq(x2, ltf_start - gi, zlen))
-        z = z * sync.cfo_ramp(cfo, zlen)
+        def syms(off, n, stride=None):
+            return demod.static_symbol_windows(z, off, n, nfft=nfft, gi=gi,
+                                               shift=sh, stride=stride)
 
-        ltf_t = demod.static_symbol_windows(z, 0, 2, nfft=nfft, gi=gi,
-                                            shift=sh, stride=nfft)
-        lchan = demod.legacy_chan_est(self._fft(ltf_t), self.ltf_ref_l)
+        nl = (None if self.mod.fmt == F.L
+              else syms(gi + OFF_NLLTF * q, 1))
+        return (syms(0, 2, nfft), syms(gi + OFF_LSIG * q, 1), nl,
+                syms(gi + self.data_offset(), self.n_sym))
 
-        # L-SIG validation (always decoded, as in the reference receiver)
-        g = self._fft(demod.static_symbol_windows(
-            z, gi + OFF_LSIG * q, 1, nfft=nfft, gi=gi, shift=sh))
-        eq = demod.equalize(g, lchan)
+    def grids(self, z: torch.Tensor):
+        """4. The symbol windows and their DFTs (`demod.fft_syms`): the
+        frequency grids of `symbol_windows`, in its order."""
+        return tuple(None if w is None else self._fft(w)
+                     for w in self.symbol_windows(z))
+
+    def lsig(self, ltf_g: torch.Tensor, sig_g: torch.Tensor):
+        """5. The L-LTF channel estimate, then L-SIG (always decoded, as in
+        the reference receiver): equalize, pilot phase, the 24-bit Viterbi,
+        parity. Returns (legacy channel [B, N], lsig_ok [B])."""
+        lchan = demod.legacy_chan_est(ltf_g, self.ltf_ref_l)
+        eq = demod.equalize(sig_g, lchan)
         ph = demod.pilot_phase(eq, self.sig_pilot_ref, self.sig_pilot_idx)
         eq = (eq / ph[..., None])[:, 0]
         tones = eq[:, self.sig_data_idx]
-        tones = tones.reshape(tones.shape[0], q, 48).sum(dim=1)
+        tones = tones.reshape(tones.shape[0], self.q, 48).sum(dim=1)
         lsig_llr = tones.real[:, self.sig_perm]
         lsig_bits = coding.viterbi_decode(lsig_llr, CR.CR12, 24,
                                           self.vit_w0, self.vit_w1)
-        lsig_ok = (lsig_bits[:, :17].sum(dim=-1) % 2) == lsig_bits[:, 17]
+        return lchan, (lsig_bits[:, :17].sum(dim=-1) % 2) == lsig_bits[:, 17]
 
-        # DATA field
-        if mod.fmt == F.L:
-            chan = lchan
-        else:
-            nl = demod.static_symbol_windows(z, gi + OFF_NLLTF * q, 1,
-                                             nfft=nfft, gi=gi, shift=sh)
-            chan = demod.nonlegacy_chan_est_siso(self._fft(nl)[:, 0],
-                                                 self.ltf_ref_nl)
-        gd = self._fft(demod.static_symbol_windows(
-            z, gi + self.data_offset(), n_sym, nfft=nfft, gi=gi, shift=sh))
-        llrs = demod.demod_data_siso(gd, chan, mod, self.pilot_ref,
+    def chan_est(self, lchan: torch.Tensor, nl_g):
+        """6. The DATA field's channel: the HT/VHT-LTF estimate, or the
+        legacy one for a legacy packet."""
+        if nl_g is None:
+            return lchan
+        return demod.nonlegacy_chan_est_siso(nl_g[:, 0], self.ltf_ref_nl)
+
+    def data_llrs(self, data_g: torch.Tensor, chan: torch.Tensor):
+        """7. ZF, pilot phase, the (CSI-weighted) LLR demap and the
+        deinterleave: LLRs [B, n_coded]."""
+        return demod.demod_data_siso(data_g, chan, self.mod, self.pilot_ref,
                                      self.pilot_idx, self.data_idx,
                                      self.rx_perm,
                                      csi_weight=self.csi_weight)
-        bits = coding.viterbi_decode(llrs, mod.cr, n_sym * mod.nDBPS,
+
+    def viterbi(self, llrs: torch.Tensor):
+        """8. The DATA Viterbi: bits [B, n_sym * nDBPS] int32."""
+        return coding.viterbi_decode(llrs, self.mod.cr,
+                                     self.n_sym * self.mod.nDBPS,
                                      self.vit_w0, self.vit_w1)
-        scr = coding.descramble(bits, self.prbs, self.seed_inv)
-        return dict(bits=scr, ltf_start=ltf_start, cfo=cfo, snr=snr,
-                    lsig_ok=lsig_ok)
+
+    def descramble(self, bits: torch.Tensor):
+        """9. The scrambler seed from the service bits, the PRBS removed."""
+        return coding.descramble(bits, self.prbs, self.seed_inv)
+
+    def forward(self, x2: torch.Tensor, t0: torch.Tensor):
+        ltf_start, cfo, snr = self.sync_front(x2, t0)
+        z = self.derotate(self.window(x2, ltf_start), cfo)
+        ltf_g, sig_g, nl_g, data_g = self.grids(z)
+        lchan, lsig_ok = self.lsig(ltf_g, sig_g)
+        llrs = self.data_llrs(data_g, self.chan_est(lchan, nl_g))
+        return dict(bits=self.descramble(self.viterbi(llrs)),
+                    ltf_start=ltf_start, cfo=cfo, snr=snr, lsig_ok=lsig_ok)
 
 
 class RxPipeline(nn.Module):

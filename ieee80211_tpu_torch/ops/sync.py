@@ -72,6 +72,19 @@ def cfo_ramp(cfo_rad: torch.Tensor, n: int) -> torch.Tensor:
     return torch.complex(torch.cos(ph), torch.sin(ph))
 
 
+def ltf_sync_products(y: torch.Tensor, cfo_rad: torch.Tensor,
+                      q: int) -> torch.Tensor:
+    """The four real sequences whose moving sums of 64q `_ltf_sync_window`
+    takes, stacked on the batch: Re and Im of the lag-64q products, then
+    the power at both ends of the lag, of the CFO-corrected window
+    y [B, (N_LAG + 3 * 64) q] -> [4B, (N_LAG + 2 * 64) q] float32."""
+    p = LTF_PERIOD * q
+    y = y * cfo_ramp(cfo_rad, N_LAG * q + 3 * p)
+    prod = y[:, :-p] * torch.conj(y[:, p:])
+    pwr = torch.abs(y) ** 2
+    return torch.cat([prod.real, prod.imag, pwr[:, :-p], pwr[:, p:]], dim=0)
+
+
 def _ltf_sync_window(y: torch.Tensor, t0: torch.Tensor,
                      cfo_rad: torch.Tensor, band: torch.Tensor, q: int):
     """LTF plateau timing + fine CFO on the pre-sliced window
@@ -84,17 +97,10 @@ def _ltf_sync_window(y: torch.Tensor, t0: torch.Tensor,
     band: `ltf_band_mat(q)` on y's device.
     Returns (ltf_data_start int32 [B], cfo_total [B], snr [B]).
     """
-    p = LTF_PERIOD * q
-    n_lag = N_LAG * q
-    win = n_lag + 3 * p
-    y = y * cfo_ramp(cfo_rad, win)
-    prod = y[:, :-p] * torch.conj(y[:, p:])
-    pwr = torch.abs(y) ** 2
+    p, n_lag = LTF_PERIOD * q, N_LAG * q
     # the four real moving sums as ONE banded matmul, stacked on the batch
     b = y.shape[0]
-    stacked = torch.cat([prod.real, prod.imag, pwr[:, :-p], pwr[:, p:]],
-                        dim=0)
-    ms = torch.matmul(stacked, band)
+    ms = torch.matmul(ltf_sync_products(y, cfo_rad, q), band)
     num = torch.complex(ms[:b], ms[b:2 * b])
     p1 = ms[2 * b:3 * b]
     p2 = ms[3 * b:]
@@ -122,13 +128,21 @@ def sync_front_iq(x2: torch.Tensor, t0: torch.Tensor, band: torch.Tensor,
     q = oversample factor vs 20 MHz (1/2/4 for 20/40/80 MHz).
     Returns (ltf_data_start int32 [B], cfo_total_rad [B], snr_metric [B]).
     """
+    y, cfo_c = stf_coarse(x2, t0, q)
+    return _ltf_sync_window(y, t0, cfo_c, band, q)
+
+
+def stf_coarse(x2: torch.Tensor, t0: torch.Tensor, q: int = 1):
+    """The first half of `sync_front_iq`: one window slice of the raw
+    [B, N, 2] I/Q from t0, and the coarse CFO of its STF. Returns (the
+    window past the STF [B, (N_LAG + 3 * 64) q] complex64, coarse CFO [B]
+    rad/sample)."""
     n_prod, lag, n_lag = N_PROD * q, LAG * q, N_LAG * q
     win = n_lag + 3 * LTF_PERIOD * q
     w = r2c(batch_slice_iq(x2, t0, 80 * q + win))
     acc = torch.sum(w[:, :n_prod] * torch.conj(w[:, lag:lag + n_prod]),
                     dim=-1)
-    cfo_c = torch.atan2(acc.imag, acc.real) / lag
-    return _ltf_sync_window(w[:, 80 * q:], t0, cfo_c, band, q)
+    return w[:, 80 * q:], torch.atan2(acc.imag, acc.real) / lag
 
 
 def apply_cfo_correction(x: torch.Tensor, cfo_rad: torch.Tensor

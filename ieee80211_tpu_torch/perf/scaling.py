@@ -15,7 +15,6 @@ host's clock.
 from __future__ import annotations
 
 import json
-import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -27,6 +26,7 @@ from ..parallel.mesh import ensure_process_group
 from ..specs import F, Mod
 from ..specs.modulation import ppdu_params_nonaggregate
 from ..utils.device import entry_device
+from .timing import call_ms
 
 
 def _packet_batch(batch: int):
@@ -49,22 +49,6 @@ def _packet_batch(batch: int):
     x = np.zeros((batch, w), dtype=np.complex64)
     x[:, :min(w, len(seg))] = seg[:min(w, len(seg))]
     return mod, pp, c2r(x), np.zeros(batch, dtype=np.int32)
-
-
-def _seconds(fn, dev: torch.device) -> float:
-    """One call of fn(): CUDA events on the card, the host clock on the
-    CPU."""
-    if dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        return start.elapsed_time(stop) / 1e3
-    t = time.perf_counter()
-    fn()
-    return time.perf_counter() - t
 
 
 def measure_scaling(device_counts: Optional[Sequence[int]] = None,
@@ -90,7 +74,7 @@ def measure_scaling(device_counts: Optional[Sequence[int]] = None,
             t0 = torch.from_numpy(np.tile(t0_one, n)).to(dev)
             with torch.inference_mode():
                 run(x2, t0)
-                dts = [_seconds(lambda: run(x2, t0), dev)
+                dts = [call_ms(lambda: run(x2, t0), dev)[0] / 1e3
                        for _ in range(iters)]
             rate = [b * x2_one.shape[1] / float(np.median(dts))]
         dist.broadcast_object_list(rate, src=0)   # rank 0 is in every mesh

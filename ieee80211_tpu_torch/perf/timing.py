@@ -1,5 +1,5 @@
-"""CUDA-event timing of a callable on the card, and the host's time to issue
-it."""
+"""CUDA-event timing of a callable on the card, the host's time to issue
+it, and one call's time on the card or, for the CPU tests, the host."""
 from __future__ import annotations
 
 import time
@@ -92,6 +92,12 @@ def kernels_ms(fn, iters: int = ITERS, warmup: int = WARMUP):
     the CUDA kernels it launches, summed over `iters` calls from
     torch.profiler's device events. None when the profiler recorded no
     whole number of launches per call (it can drop events)."""
+    return kernels(fn, iters, warmup)[0]
+
+
+def kernels(fn, iters: int = ITERS, warmup: int = WARMUP):
+    """(kernels_ms, device launches per call): both None when the profiler
+    recorded no whole number of launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -104,5 +110,44 @@ def kernels_ms(fn, iters: int = ITERS, warmup: int = WARMUP):
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == DeviceType.CUDA]
     if not us or len(us) % iters:
-        return None
-    return sum(us) / iters / 1e3
+        return None, None
+    return sum(us) / iters / 1e3, len(us) // iters
+
+
+def median_ms(fn, dev: torch.device, iters: int = ITERS,
+              warmup: int = WARMUP) -> float:
+    """cuda_ms on the card; on the CPU (the tests' runs, never a device
+    metric) the median of `iters` calls on the host clock."""
+    if dev.type == "cuda":
+        return cuda_ms(fn, iters, warmup)
+    for _ in range(warmup):
+        fn()
+    return float(np.median([call_ms(fn, dev)[0] for _ in range(iters)]))
+
+
+def call_ms(fn, dev: torch.device):
+    """One call of fn(): (its time in ms, its result). On the card between
+    two CUDA events on the current stream; on the CPU (the tests' runs,
+    never a device metric) on the host clock."""
+    if dev.type != "cuda":
+        t = time.perf_counter()
+        out = fn()
+        return (time.perf_counter() - t) * 1e3, out
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def host_s(fn, dev: torch.device):
+    """One call of fn() on the host clock, ending with the work that it
+    queued on `dev` finished (a synchronize on the card; on the CPU every
+    op has returned its result): (seconds, its result)."""
+    t = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t, out

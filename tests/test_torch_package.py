@@ -21,6 +21,7 @@ from ieee80211_tpu.ops import demod as jdemod
 from ieee80211_tpu.ops import sync as jsync
 from ieee80211_tpu.specs import BW, F, Mod, tables
 from ieee80211_tpu_torch.models import RxPipeline, tables_from_numpy
+from ieee80211_tpu_torch.perf.bench import Sizes
 from torch_parity import port_mod
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -148,7 +149,11 @@ def test_import_never_loads_jax(import_probe):
             "ieee80211_tpu_torch.parallel.sharded",
             "ieee80211_tpu_torch.parallel._smoke_worker",
             "ieee80211_tpu_torch.perf.scaling",
-            "ieee80211_tpu_torch.rx.generic"} <= set(
+            "ieee80211_tpu_torch.rx.generic",
+            "ieee80211_tpu_torch.perf.bench",
+            "ieee80211_tpu_torch.perf.stages",
+            "ieee80211_tpu_torch.perf.floor",
+            "ieee80211_tpu_torch.perf.branch_floor"} <= set(
                 import_probe["modules"])
     assert import_probe["jax"] == []
 
@@ -243,6 +248,11 @@ def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+# perf.bench's capture rows at their smallest
+TINY = Sizes(n_api=2, n_copy=1, n_stream=1, n_mimo_seg=2, n_mimo_rep=1,
+             n_mu_seg=2, n_mu_rep=1, n_mu_cap=1, mu_tx_floor=1)
+
+
 def _slice_entry_points(tmp_path=None):
     """The entry points of the TX, MU and API slice and of the PDR harness
     and examples, each built without a device argument (so on the card),
@@ -253,8 +263,9 @@ def _slice_entry_points(tmp_path=None):
     from ieee80211_tpu_torch.examples import (inspect_bin, mu_sounding_demo,
                                               stream_decode)
     from ieee80211_tpu_torch.mu import sounding
-    from ieee80211_tpu_torch.perf import (acceptance, mimo_pdr_sweep, pdr,
-                                          pdr_sweep)
+    from ieee80211_tpu_torch.perf import (acceptance, bench, branch_floor,
+                                          floor, mimo_pdr_sweep, pdr,
+                                          pdr_sweep, stages)
     from ieee80211_tpu_torch.rx import MimoReceiver, SisoReceiver
     from ieee80211_tpu_torch.specs.modulation import ppdu_params_aggregate
     from ieee80211_tpu_torch.tx import (MuTxPipeline, TxPipeline,
@@ -299,6 +310,15 @@ def _slice_entry_points(tmp_path=None):
         "stream_decode.main": lambda **kw: stream_decode.main(
             True, n_caps=1, reps=1, **kw),
         "mu_sounding_demo.main": lambda **kw: mu_sounding_demo.main(**kw),
+        # the measuring programs at their smallest: one round of bench's
+        # rows on TINY's captures, the stages at batch 1, the floor
+        # bracket's warm passes, the branch floor's mesh and capture
+        "perf.bench.run": lambda **kw: bench.run(1, 1, 1, sizes=TINY, **kw),
+        "perf.stages.measure": lambda **kw: stages.measure(1, 1, **kw),
+        "perf.floor.bracket": lambda **kw: floor.bracket(0, sizes=TINY,
+                                                         **kw),
+        "perf.branch_floor.measure": lambda **kw: branch_floor.measure(
+            (), packets=1, caps=(), **kw),
     }
 
 
@@ -312,6 +332,16 @@ _CPU_RESULTS = {
         [len(r) for r in out] == [6] and all(p.fcs_ok for p in out[0])),
     "mu_sounding_demo.main": lambda out: len(out) == 2 and all(
         len(d) == 1 for d in out),
+    "perf.bench.run": lambda out: (out["backend"] == "cpu"
+                                   and out["device"]["name"] == "cpu"
+                                   and out["value"] > 0),
+    "perf.stages.measure": lambda out: (
+        out["batch"] == 1 and out["stage_sum"]["device_ms"] is None
+        and set(out["layouts"]) == {"fft", "movsum", "descramble"}),
+    "perf.floor.bracket": lambda out: len(out) == 3 and all(
+        r["full"] == [] and r["samples"] > 0 for r in out.values()),
+    "perf.branch_floor.measure": lambda out: (
+        out["branch_loop"] == {} and out["routed"]["window"] > 0),
 }
 
 
