@@ -118,8 +118,9 @@ Phases, in order; any failed check raises and the exit code is non-zero:
  29. `sharded_capture_decode_auto2` on the first dual-chain stream capture
      of phase 17 (1440 packets) with `branch_cap=None` and 768: the same
      checks and numbers against `MimoReceiver("auto")`;
- 30. the loop's envelope: `__graft_entry__.dryrun_multichip`'s capture (L,
-     VHT A-MPDU, HT MCS12 2x2, an NDP whose LTFs give `ndp_ltf_channel`),
+ 30. the loop's envelope: the first capture of `entry.envelope_captures(1)`
+     (`__graft_entry__.dryrun_multichip`'s: L, VHT A-MPDU, HT MCS12 2x2,
+     an NDP whose LTFs give `ndp_ltf_channel`),
      tests/test_sharded_dual.py's MU branch (with and without a branch
      cap), tests/test_sharded_capture.py's 80 MHz case;
  31. `perf.scaling.measure_scaling()` on one rank: {1: samples/s} (N >= 2
@@ -137,7 +138,14 @@ Phases, in order; any failed check raises and the exit code is non-zero:
  35. the branch-dispatch floor (perf/branch_floor.py) at 8 branches: the
      auto loop (branch loop, generic=True) and the auto2 loop (branch_cap
      None, 16, 8) on 64 planted packets, each decoding every packet;
- 36. the kernels line.
+ 36. the top-level entry points (ieee80211_tpu_torch/entry.py): `entry()` on
+     the card (4/4 lsig_ok, the exact MPDU in every row, equal to the port's
+     CPU run, Viterbi and per-row slice launches, the step's time), then
+     `dryrun_multichip(1)` on phase 27's 1-rank NCCL group (counts 3 / 1 /
+     1 / 1: mixed packets, NDPs, MU, 80 MHz) and each of its three loops
+     alone: Viterbi and multi-chain slice launches, the call's time (CUDA
+     events, median of 5 after a warm-up);
+ 37. the kernels line.
 The MU shapes (a SIG-B group of 26 bits, the MU stream's DATA bucket, and
 the MU window lengths of both capture-slice modes) join phases 3, 9 and 13.
 The line before the last is a JSON object of the kernels; the last line is
@@ -158,6 +166,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ieee80211_tpu_torch import entry as port_entry
 from ieee80211_tpu_torch import native
 from ieee80211_tpu_torch.api import PhyService
 from ieee80211_tpu_torch.api import descriptors as wire
@@ -840,46 +849,6 @@ def mesh_capture():
     return cap, offs, mod, pp, w, mpdu
 
 
-def envelope_capture():
-    """__graft_entry__.dryrun_multichip's capture on one rank (seed 5): L
-    MCS7 and a VHT MCS7 A-MPDU through a flat channel to both chains, an HT
-    MCS12 2x2 packet and a 2-stream VHT NDP through a 2x2 channel, noise
-    1e-4. Returns (capture [1, 2, T], branches, window length, mpdu)."""
-    rng = np.random.default_rng(5)
-    mpdu = build_udp_mpdu(b"123456789012345678901234567890",
-                          MacConfig(seq=2704, **MAC))
-    ampdu = aggregate_vht([mpdu])
-    mod_l, mod_vht, mod_22 = Mod(F.L, 7), Mod(F.VHT, 7), Mod(F.HT, 12,
-                                                              BW.BW20, 2)
-    n_l = ppdu_params_nonaggregate(mod_l, len(mpdu)).n_sym
-    n_vht = ppdu_params_aggregate(mod_vht, len(ampdu)).n_sym
-    n_22 = ppdu_params_nonaggregate(mod_22, len(mpdu)).n_sym
-    h1 = np.array([0.9 - 0.3j, 0.5 + 0.8j])[:, None]
-    h22 = np.array([[1.1 + 0.2j, 0.3 - 0.5j], [-0.4 + 0.6j, 0.9 + 0.1j]])
-    waves = [h1 * finalize(gen_mpdu(mpdu, mod_l).waveform, multiplier=0.2,
-                           cfo_hz=12000.0, gap=False)[0],
-             h1 * finalize(gen_ampdu(ampdu, mod_vht).waveform,
-                           multiplier=0.2, cfo_hz=5000.0, gap=False)[0],
-             h22 @ finalize(gen_mpdu(mpdu, mod_22).waveform, multiplier=0.2,
-                            cfo_hz=-8000.0, gap=False),
-             h22 @ finalize(gen_ampdu(b"", Mod(F.VHT, 0, BW.BW20,
-                                               2)).waveform,
-                            multiplier=0.2, cfo_hz=3000.0, gap=False)]
-    branches = ((mod_l, n_l), (mod_vht, n_vht), (mod_22, n_22))
-    w = max(MrcDataDecoder(mod_l, n_l).window_capacity(),
-            MrcDataDecoder(mod_vht, n_vht).window_capacity(),
-            272 + 448 + 160 + 80 * n_22 + 160)
-    mw = max(wv.shape[1] for wv in waves)
-    t_len = -(-(4 * (mw + 900) + 2 * w) // 512) * 512
-    cap = np.zeros((1, 2, t_len), np.complex64)
-    for o, wv in zip([64, 64 + mw + 900, 64 + 2 * (mw + 900),
-                      t_len - mw - w], waves):
-        cap[0, :, o:o + wv.shape[1]] += wv
-    cap += (rng.standard_normal(cap.shape)
-            + 1j * rng.standard_normal(cap.shape)) * 1e-4
-    return cap, branches, w, mpdu
-
-
 def mu_loop_capture():
     """tests/test_sharded_dual.py::test_sharded_auto2_mu_branch's capture in
     two rows: a 2-user MU PPDU (VHT MCS4 + MCS2, identity Q, group 2) whose
@@ -1154,12 +1123,11 @@ def loop_phases(dev, tag: str, launches: dict, headline, loop_cap,
     del x
 
     # -- 30. the loop's envelope ---------------------------------------------
-    ecap, ebranches, ew, empdu = envelope_capture()
+    est = port_entry.envelope_captures(1)[0]
+    ecap, empdu = est.capture, port_entry.example_mpdu()
     reset()
     with torch.inference_mode():
-        out = sharded_capture_decode_auto2(mesh, ebranches, ew, k_per_shard=8,
-                                           branch_cap=8)(
-            torch.from_numpy(c2r(ecap)).to(dev))
+        out = est.run(mesh)(torch.from_numpy(c2r(ecap)).to(dev))
         torch.cuda.synchronize()
     got = read(launches)
     check(all(got[k] > 0 for k in mimo_kernels), f"envelope launches {got}")
@@ -1178,7 +1146,8 @@ def loop_phases(dev, tag: str, launches: dict, headline, loop_cap,
                               n_sts=2)
         n_ndp += bool(np.all(np.isfinite(est)) and np.abs(est).max() > 1e-3)
     check(n_ndp == 1, f"envelope: {n_ndp} NDPs give a channel")
-    print(f"envelope (dryrun_multichip's capture, 2 x {ecap.shape[2]}): L "
+    print(f"envelope (dryrun_multichip's first capture, 2 x "
+          f"{ecap.shape[2]}): L "
           f"MCS7, VHT MCS7 A-MPDU, HT MCS12 2x2 decode to the exact MPDU, "
           f"the NDP's LTFs give ndp_ltf_channel; launches {got}")
     mcap_mu, br_su, br_mu, w_mu, mpdu0, mpdu_su = mu_loop_capture()
@@ -1224,7 +1193,74 @@ def loop_phases(dev, tag: str, launches: dict, headline, loop_cap,
     print(f"measure_scaling on one rank (sharded_rx, L MCS7, batch 256, "
           f"median of 5 on CUDA events): {{1: {rates[1]:.6g}}} samples/s; "
           f"N >= 2 is not measurable on one card; launches {got} {tag}")
-    dist.destroy_process_group()
+
+
+def entry_phase(dev, tag: str, launches: dict) -> None:
+    """Phase 36: `entry()` as a caller of the package calls it, on the card (against the
+    port's CPU run of the same batch), and `dryrun_multichip(1)` on the
+    1-rank NCCL group of phase 27; then each dryrun stage on its own, its
+    launches and its call time. Launch counts add into `launches`."""
+    mpdu = port_entry.example_mpdu()
+    fn, args = port_entry.entry()
+    check(all(a.device == dev for a in args), f"entry() inputs on {dev}")
+    reset()
+    with torch.inference_mode():
+        out = fn(*args)
+        torch.cuda.synchronize()
+    got = read(launches)
+    check(got["viterbi"] > 0 and got["slice"] > 0, f"entry() launches {got}")
+    n = len(args[1])
+    rows = loop_mpdus({"ok": torch.ones(1, n, dtype=torch.bool),
+                       "bits": out["bits"][None]}, psdu_len=len(mpdu))
+    check(bool(out["lsig_ok"].all())
+          and [m for _, _, m in rows] == [[mpdu]] * n,
+          f"entry(): {n}/{n} lsig_ok and the exact MPDU in every row")
+    cfn, cargs = port_entry.entry(device="cpu")
+    with torch.inference_mode():
+        ref = cfn(*cargs)
+        ms = cuda_ms(lambda: fn(*args), iters=LOOP_ITERS, warmup=1)
+    check(all(torch.equal(out[k].cpu(), ref[k])
+              for k in ("bits", "ltf_start", "lsig_ok")),
+          "entry(): bits, ltf_start, lsig_ok == the port's CPU run")
+    print(f"entry() (L MCS7, {n} packets [{n} x {args[0].shape[1]}]): "
+          f"{n}/{n} lsig_ok, the exact MPDU in every row, == the port's CPU "
+          f"run; launches {got}; step {ms:.4f} ms per call (CUDA events, "
+          f"median of {LOOP_ITERS}) {tag}")
+
+    reset()
+    t = time.perf_counter()
+    res = port_entry.dryrun_multichip(1, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = read(launches)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "dryrun_multichip(1) on the 1-rank NCCL group of phase 27")
+    check(res["counts"] == {"mixed": 3, "ndp": 1, "mu": 1, "wideband": 1},
+          f"dryrun_multichip(1): counts {res['counts']}")
+    check(all(got[k] > 0 for k in ("viterbi", "slice", "slice_multi")),
+          f"dryrun_multichip(1) launches {got}")
+    print(f"dryrun_multichip(1): counts {res['counts']}; launches {got}; "
+          f"{wall:.2f} s of wall time, captures and first calls included")
+    mesh = make_phy_mesh(1, device=dev)
+    for st in port_entry.envelope_captures(1):
+        run = st.run(mesh)
+        x = c2r(st.capture)            # a numpy capture, as the dryrun
+        reset()
+        with torch.inference_mode():
+            out = run(x)
+            torch.cuda.synchronize()
+        got = read(launches)
+        check(got["viterbi"] > 0 and got["slice_multi"] > 0,
+              f"dryrun stage {st.name} launches {got}")
+        counts = port_entry.stage_counts(st, out)
+        check(all(counts[k] == res["counts"][k] for k in counts),
+              f"dryrun stage {st.name}: {counts}")
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: run(x), iters=LOOP_ITERS, warmup=1)
+        print(f"dryrun stage {st.name} [1 x 2 x {st.capture.shape[2]}], "
+              f"window {st.window}: {counts}; launches {got}; "
+              f"{ms:.4f} ms per call (CUDA events, median of {LOOP_ITERS}, "
+              f"the numpy capture's upload inside) {tag}")
 
 
 def main() -> int:
@@ -2204,7 +2240,11 @@ def main() -> int:
                   f"{bf['packets']} packets, {t['ms']:.4f} ms per call, "
                   f"{t['samples_per_s']:.6g} samples/s {tag}")
 
-    # -- 36. the kernels line ------------------------------------------------
+    # -- 36. the top-level entry points ---------------------------------------
+    entry_phase(dev, tag, launches)
+    dist.destroy_process_group()       # the 1-rank group of phase 27
+
+    # -- 37. the kernels line ------------------------------------------------
     def entry(name, source, replaces, key, err, t):
         return {"name": name, "route": "cuda",
                 "source": f"ieee80211_tpu_torch/csrc/{source}",

@@ -13,10 +13,6 @@ ranks, and the single-process fallback of `init_distributed`.
 """
 import dataclasses
 import json
-import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -28,9 +24,8 @@ from ieee80211_tpu.parallel import sharded as jsh
 from ieee80211_tpu.utils import c2r
 from test_sharded_capture import _build, _mixed_capture
 from test_sharded_dual import _capture, _setup
-from torch_parity import assert_same
+from torch_parity import assert_same, finish_ranks, spawn_ranks
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 300   # s for a group of worker processes
 
 # one rank: the port's loops on the spec's captures, outputs to an npz
@@ -93,41 +88,6 @@ dist.destroy_process_group()
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _spawn(n: int, argv):
-    """n rank processes of `argv` over gloo on localhost."""
-    port = _free_port()
-    procs = []
-    for rank in range(n):
-        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   WORLD_SIZE=str(n), RANK=str(rank), LOCAL_RANK=str(rank),
-                   LOCAL_WORLD_SIZE=str(n))
-        procs.append(subprocess.Popen(
-            [sys.executable] + argv, cwd=REPO, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    return procs
-
-
-def _finish(procs):
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {rank} failed:\n{out[-3000:]}"
-    return outs
-
-
 def _mod_spec(mod) -> dict:
     return {f.name: int(getattr(mod, f.name))
             for f in dataclasses.fields(mod)}
@@ -161,7 +121,7 @@ def test_loops_across_ranks_equal_jax(tmp_path, n_ranks):
             "auto2": {"branches": _branches_spec(branches2), "w": w2,
                       "branch_cap": branch_cap},
             "scaling": n_ranks == 2}
-    procs = _spawn(n_ranks, ["-c", _WORKER, json.dumps(spec)])
+    procs = spawn_ranks(n_ranks, ["-c", _WORKER, json.dumps(spec)])
 
     # the JAX mesh of the same shape, while the ranks run
     jm = jax_mesh(n_ranks, sp=2)
@@ -178,7 +138,7 @@ def test_loops_across_ranks_equal_jax(tmp_path, n_ranks):
                                            branch_cap=branch_cap)(c2r(dual))
     ref.update({f"auto2/{k}": v for k, v in res.items()})
 
-    _finish(procs)
+    finish_ranks(procs, TIMEOUT)
     got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(n_ranks)]
     for r, g in enumerate(got):
         for k, v in g.items():       # every rank returns the same outputs
@@ -197,8 +157,8 @@ def test_loops_across_ranks_equal_jax(tmp_path, n_ranks):
 
 
 def test_two_process_smoke_worker():
-    outs = _finish(_spawn(2, ["-m",
-                              "ieee80211_tpu_torch.parallel._smoke_worker"]))
+    outs = finish_ranks(spawn_ranks(
+        2, ["-m", "ieee80211_tpu_torch.parallel._smoke_worker"]), TIMEOUT)
     for rank, out in enumerate(outs):
         assert f"SMOKE OK process {rank}/2 mesh dp=1 sp=2" in out, out
 

@@ -153,7 +153,8 @@ def test_import_never_loads_jax(import_probe):
             "ieee80211_tpu_torch.perf.bench",
             "ieee80211_tpu_torch.perf.stages",
             "ieee80211_tpu_torch.perf.floor",
-            "ieee80211_tpu_torch.perf.branch_floor"} <= set(
+            "ieee80211_tpu_torch.perf.branch_floor",
+            "ieee80211_tpu_torch.entry"} <= set(
                 import_probe["modules"])
     assert import_probe["jax"] == []
 
@@ -375,6 +376,7 @@ def test_slice_entry_points_run_on_the_cpu_when_asked(monkeypatch, tmp_path,
 def test_entry_points_without_a_device_need_a_card(monkeypatch):
     """With no device given, every entry point asks for the card, and
     raises where there is none: nothing falls back to the CPU."""
+    from ieee80211_tpu_torch import entry
     from ieee80211_tpu_torch.parallel import (make_global_phy_mesh,
                                               make_phy_mesh)
     from ieee80211_tpu_torch.rx import (MimoReceiver, SisoReceiver,
@@ -391,7 +393,10 @@ def test_entry_points_without_a_device_need_a_card(monkeypatch):
                   lambda: RxPipeline(mod, 18, 582, device="cuda"),
                   make_phy_mesh, make_global_phy_mesh,
                   lambda: make_phy_mesh(device="cuda"),
-                  lambda: GenericSisoDecoder(((F.L, 3), (F.VHT, 7)), 8)):
+                  lambda: GenericSisoDecoder(((F.L, 3), (F.VHT, 7)), 8),
+                  entry.entry, lambda: entry.dryrun_multichip(1),
+                  lambda: entry.entry("cuda"),
+                  lambda: entry.dryrun_multichip(1, device="cuda")):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             build()
 
@@ -411,6 +416,10 @@ def test_entry_points_run_on_the_cpu_when_asked(monkeypatch):
     from ieee80211_tpu_torch.rx.generic import GenericSisoDecoder
     dec = GenericSisoDecoder(((F.L, 3), (F.VHT, 7)), 8, device="cpu")
     assert {b.device for b in dec.buffers()} == {cpu}
+    from ieee80211_tpu_torch import entry
+    step, args = entry.entry(device="cpu")
+    assert {b.device for b in step.buffers()} == {cpu}
+    assert {a.device for a in args} == {cpu}
 
 
 def test_meshes_run_on_the_cpu_when_asked(monkeypatch):

@@ -4,6 +4,10 @@ Not collected by pytest. Inputs are made with numpy and passed to both
 packages as numpy arrays; JAX stays on the CPU (tests/conftest.py).
 """
 import dataclasses
+import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -16,6 +20,8 @@ from ieee80211_tpu.tx.golden import bcc
 # tier-1 runs several pytest workers on one host: keep each one's torch
 # intra-op pool small
 torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def encode_batch(rng, batch: int, n_bits: int, cr, sigma: float = 0.2):
@@ -32,6 +38,14 @@ def port_mod(mod):
     packages' Mods are separate frozen dataclasses (a JAX Mod never equals a
     port Mod), so the port's code gets its own."""
     from ieee80211_tpu_torch import specs
+    return specs.Mod(**{f.name: getattr(mod, f.name)
+                        for f in dataclasses.fields(mod)})
+
+
+def jax_mod(mod):
+    """The JAX package's Mod built from the port's, field for field (the
+    inverse of port_mod)."""
+    from ieee80211_tpu import specs
     return specs.Mod(**{f.name: getattr(mod, f.name)
                         for f in dataclasses.fields(mod)})
 
@@ -201,3 +215,44 @@ def assert_same(ref: dict, got: dict) -> None:
         else:
             np.testing.assert_allclose(g, r, rtol=0, atol=LOOP_TOL[k],
                                        err_msg=k)
+
+
+# rank processes over gloo on localhost (tests/test_torch_distributed.py,
+# test_torch_entry.py): one CPU rank each, started as torchrun starts them
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(n: int, argv):
+    """n rank processes of `python argv` over gloo on localhost."""
+    port = _free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(n), RANK=str(rank), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(n))
+        procs.append(subprocess.Popen(
+            [sys.executable] + argv, cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def finish_ranks(procs, timeout: float):
+    """Wait for every rank of a group, `timeout` s each; kill what is left
+    on the way out. Every rank must exit 0. Returns their outputs."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} failed:\n{out[-3000:]}"
+    return outs
