@@ -145,7 +145,13 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      1 / 1: mixed packets, NDPs, MU, 80 MHz) and each of its three loops
      alone: Viterbi and multi-chain slice launches, the call's time (CUDA
      events, median of 5 after a warm-up);
- 37. the kernels line.
+ 37. `perf.multicard`'s 1-rank pass on phase 27's NCCL group: every loop
+     of parallel/sharded.py (the frontend, `sharded_rx`,
+     `sharded_capture_decode`, the auto loop with its branch loop and
+     `generic=True`, auto2 with and without `branch_cap`) on a 1-rank mesh,
+     each held to the packets planted, its launches and its time per call
+     (CUDA events, median of 5 after a warm-up);
+ 38. the kernels line.
 The MU shapes (a SIG-B group of 26 bits, the MU stream's DATA bucket, and
 the MU window lengths of both capture-slice modes) join phases 3, 9 and 13.
 The line before the last is a JSON object of the kernels; the last line is
@@ -191,8 +197,8 @@ from ieee80211_tpu_torch.parallel.sharded import (
     HALO, branch_window_len, sharded_capture_decode_auto,
     sharded_capture_decode_auto2)
 from ieee80211_tpu_torch.perf import acceptance as acc
-from ieee80211_tpu_torch.perf import (bench, branch_floor, floor, pdr, stages,
-                                      vit_floor)
+from ieee80211_tpu_torch.perf import (bench, branch_floor, floor, multicard,
+                                      pdr, stages, vit_floor)
 from ieee80211_tpu_torch.perf.branch_floor import loop_mpdus
 from ieee80211_tpu_torch.perf.scaling import measure_scaling
 from ieee80211_tpu_torch.perf.timing import (cuda_ms, cuda_ms_turns,
@@ -1263,6 +1269,29 @@ def entry_phase(dev, tag: str, launches: dict) -> None:
               f"the numpy capture's upload inside) {tag}")
 
 
+def multicard_phase(tag: str, launches: dict) -> None:
+    """Phase 37: `perf.multicard.run` as its 1-rank pass runs, on the 1-rank
+    NCCL group of phase 27: every loop once on a 1-rank mesh, held to the
+    packets planted, and timed. Launch counts add into `launches`."""
+    reset()
+    res = multicard.run(emit=lambda line: None)
+    got = read(launches)
+    lines = res["lines"]
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "perf.multicard on the 1-rank NCCL group of phase 27")
+    check([ln["loop"] for ln in lines] == list(multicard.LOOPS)
+          and all(ln["mesh"] == [1, 1] for ln in lines),
+          f"perf.multicard: every loop on a 1-rank mesh {lines}")
+    check(all(ln["launches"][0]["viterbi"] > 0 for ln in lines[1:])
+          and all(got[k] > 0 for k in ("viterbi", "slice", "slice_shared",
+                                       "slice_multi")),
+          f"perf.multicard launches {got}")
+    for ln in lines:
+        print(f"multicard {ln['loop']} on one rank: {ln['ms']:.4f} ms per "
+              f"call, {ln['samples_per_s']:.6g} samples/s; launches "
+              f"{ln['launches'][0]} {tag}")
+
+
 def main() -> int:
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2242,9 +2271,12 @@ def main() -> int:
 
     # -- 36. the top-level entry points ---------------------------------------
     entry_phase(dev, tag, launches)
+
+    # -- 37. perf.multicard's 1-rank pass ------------------------------------
+    multicard_phase(tag, launches)
     dist.destroy_process_group()       # the 1-rank group of phase 27
 
-    # -- 37. the kernels line ------------------------------------------------
+    # -- 38. the kernels line ------------------------------------------------
     def entry(name, source, replaces, key, err, t):
         return {"name": name, "route": "cuda",
                 "source": f"ieee80211_tpu_torch/csrc/{source}",

@@ -98,7 +98,9 @@ class Stage:
             mesh, self.branches, self.window, **self.options)
 
 
-def _round_up(n: int, sp: int) -> int:
+def round_up(n: int, sp: int) -> int:
+    """n rounded up to a multiple of 512 sp: a capture length that splits
+    over sp shards of whole 512-sample blocks."""
     return -(-n // (512 * sp)) * (512 * sp)
 
 
@@ -151,7 +153,7 @@ def envelope_captures(n_devices: int) -> list:
             272 + 448 + 160 + 80 * pp_22.n_sym + 160)
 
     max_wave = max(wv.shape[1] for wv in waves)
-    t_len = _round_up(4 * (max_wave + 900) + 2 * w, sp)
+    t_len = round_up(4 * (max_wave + 900) + 2 * w, sp)
     tl = t_len // sp
     capture = np.zeros((dp, 2, t_len), dtype=np.complex64)
     for r in range(dp):
@@ -178,7 +180,7 @@ def envelope_captures(n_devices: int) -> list:
     n_sym_mu = max(ppdu_params_aggregate(Mod(F.VHT, m, BW.BW20, 1),
                                          len(ampdu)).n_sym for m in (2, 4))
     w_mu = max(w, 272 + 448 + 4 * 80 + 160 + (n_sym_mu + 2) * 80 + 80)
-    t_mu = _round_up(rx_mu.shape[1] + 2000 + 2 * w_mu, sp)
+    t_mu = round_up(rx_mu.shape[1] + 2000 + 2 * w_mu, sp)
     cap_mu = np.zeros((dp, 2, t_mu), dtype=np.complex64)
     for r in range(dp):
         o = 128 + 48 * r
@@ -193,7 +195,7 @@ def envelope_captures(n_devices: int) -> list:
                                   multiplier=0.2, cfo_hz=40000.0,
                                   gap=False)[0])
     w80 = MrcDataDecoder(mod80, pp80.n_sym).window_capacity()
-    t80 = _round_up(w80_wave.shape[1] + 3000 + 2 * w80, sp)
+    t80 = round_up(w80_wave.shape[1] + 3000 + 2 * w80, sp)
     cap80 = np.zeros((dp, 2, t80), dtype=np.complex64)
     for r in range(dp):
         o = 256 + 64 * r

@@ -24,9 +24,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..utils.device import entry_device
-from .mesh import ensure_process_group
-
-_initialized = False
+from .mesh import check_cards, ensure_process_group
 
 
 def init_distributed(coordinator_address: str | None = None,
@@ -42,8 +40,7 @@ def init_distributed(coordinator_address: str | None = None,
     Returns True if a multi-process group was initialized, False for a
     single process (nothing to join). Idempotent.
     """
-    global _initialized
-    if _initialized or dist.is_initialized():
+    if dist.is_initialized():
         return dist.get_world_size() > 1
     if coordinator_address is None and "MASTER_ADDR" in os.environ:
         coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
@@ -66,7 +63,6 @@ def init_distributed(coordinator_address: str | None = None,
         "nccl" if dev.type == "cuda" else "gloo",
         init_method=f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id, **kw)
-    _initialized = True
     return dist.get_world_size() > 1
 
 
@@ -82,10 +78,13 @@ def make_global_phy_mesh(sp: int = 1, devices=None, *,
     the ranks of one node, so sp must divide the per-node rank count and
     halo exchange never leaves a node. dp spans the rest, including the
     cross-node direction. Every rank of the world calls it. Runs on the
-    card unless `device="cpu"`; without a group, a 1-rank one is made.
+    card unless `device="cpu"`; without a group, a 1-rank one is made. On
+    the card no two ranks of a host may share one (`check_cards`).
     """
     ensure_process_group(entry_device(device))
     world = dist.get_world_size()
+    if dist.get_backend() == "nccl" and world > 1:
+        check_cards()
     ranks = list(range(world)) if devices is None else sorted(devices)
     n_local = max(1, _local_world_size())
     if sp > 1:

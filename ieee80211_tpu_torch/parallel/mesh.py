@@ -13,6 +13,8 @@ on the CPU.
 """
 from __future__ import annotations
 
+import socket
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
@@ -43,6 +45,26 @@ def ensure_process_group(dev: torch.device) -> None:
                             world_size=1, **kw)
 
 
+def check_cards() -> None:
+    """Raise unless every rank of the world runs on a card of its own:
+    every rank's (host, current card), all-gathered. Only
+    `init_distributed` sets a rank's card (`torch.cuda.set_device`); a
+    process that starts NCCL without it stays on cuda:0, beside every other
+    rank of its host. Every rank of the world calls it."""
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, (socket.gethostname(),
+                                  torch.cuda.current_device()))
+    ranks = {}
+    for r, key in enumerate(seen):
+        ranks.setdefault(key, []).append(r)
+    for (host, card), rs in ranks.items():
+        if len(rs) > 1:
+            raise RuntimeError(
+                f"ranks {rs} of host {host} all run on cuda:{card}: give "
+                f"each rank its card with torch.cuda.set_device(LOCAL_RANK) "
+                f"before the process group starts (init_distributed does)")
+
+
 def mesh_device(mesh: DeviceMesh) -> torch.device:
     """The device of this rank's shard: its card, or the CPU."""
     if mesh.device_type == "cuda":
@@ -57,10 +79,18 @@ def make_phy_mesh(n_devices: int | None = None, sp: int = 1, *,
     it (the sub-groups are made collectively); a rank outside the first
     n_devices gets a mesh whose `get_coordinate()` is None. Runs on the card
     unless `device="cpu"` asks for the CPU; creates a 1-rank group where
-    none exists (`ensure_process_group`)."""
+    none exists (`ensure_process_group`). On the card, `device` must be
+    this rank's current card, and no two ranks of a host may share one
+    (`check_cards`)."""
     dev = entry_device(device)
     ensure_process_group(dev)
     world = dist.get_world_size()
+    if dev.type == "cuda":
+        if dev.index != torch.cuda.current_device():
+            raise ValueError(f"the mesh of this rank runs on cuda:"
+                             f"{torch.cuda.current_device()}, not {dev}")
+        if world > 1:
+            check_cards()
     n = n_devices or world
     assert n <= world, f"need {n} devices, have {world}"
     assert n % sp == 0

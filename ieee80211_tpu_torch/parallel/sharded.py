@@ -9,14 +9,14 @@ Port of ieee80211_tpu/parallel/sharded.py: `HALO` :26, `sharded_frontend`
 
   * front-end correlators run over *time-sharded* captures with an
     overlap-save halo that each shard receives from its right neighbour
-    (point-to-point over the sp group);
+    (from an all-gather over the sp group);
   * packet decode is *batch-sharded* (dp);
   * windows and decoded bits are regrouped with all-gathers over sp.
 
 Each JAX `shard_map` body is a function that every rank of the mesh runs
-on its own shard: `ppermute(x, "sp", i -> i-1)` becomes a send to the left
-neighbour and a receive from the right one (the identity on a 1-member sp
-axis), `all_gather(x, "sp")` an all-gather over the sp group, and
+on its own shard: `ppermute(x, "sp", i -> i-1)` becomes the right
+neighbour's row of an all-gather over the sp group (the identity on a
+1-member sp axis), `all_gather(x, "sp")` an all-gather over the sp group, and
 `axis_index("sp")` the rank's sp coordinate. Every collective goes through
 the process group, a 1-rank one too.
 
@@ -77,7 +77,6 @@ class _Axes:
             self.d, self.s = (int(c) for c in coord)
             self.dp = mesh.get_group("dp")
             self.sp = mesh.get_group("sp")
-            self.row = grid[self.d].tolist()
 
     def check(self) -> None:
         if not self.inside:
@@ -92,8 +91,17 @@ class _Axes:
             raise ValueError(f"{b} rows x {t} samples do not split over a "
                              f"({self.n_dp}, {self.n_sp}) mesh")
         bl, tl = b // self.n_dp, t // self.n_sp
-        blk = x[self.d * bl:(self.d + 1) * bl].narrow(t_axis, self.s * tl, tl)
-        return blk.to(self.device).contiguous()
+        return self.local(x[self.d * bl:(self.d + 1) * bl].narrow(
+            t_axis, self.s * tl, tl))
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """x on this rank's device, contiguous. An input on another card
+        raises: each rank holds the global input on the host or its own
+        card, so that no call reads its block across the cards' link."""
+        if x.is_cuda and x.device != self.device:
+            raise ValueError(f"an input on {x.device}, but this rank runs "
+                             f"on {self.device}")
+        return x.to(self.device).contiguous()
 
     def gather(self, x: torch.Tensor, group, n: int) -> torch.Tensor:
         """all_gather over `group` (n members): [n, *x.shape] in coordinate
@@ -117,19 +125,13 @@ class _Axes:
         return self.gather_dp(g.reshape((-1,) + tuple(x.shape[1:])))
 
     def from_right(self, x: torch.Tensor) -> torch.Tensor:
-        """ppermute(x, "sp", i -> i - 1): the right neighbour's x (cyclic).
+        """ppermute(x, "sp", i -> i - 1): the right neighbour's x (cyclic),
+        picked from an all-gather of every shard's x over sp (a halo is
+        small; an all-gather is the one kind of collective the loops use).
         A 1-member sp axis gives the shard its own x."""
         if self.n_sp == 1:
             return x
-        left = self.row[(self.s - 1) % self.n_sp]
-        right = self.row[(self.s + 1) % self.n_sp]
-        x = x.contiguous()
-        buf = torch.empty_like(x)
-        for req in dist.batch_isend_irecv(
-                [dist.P2POp(dist.isend, x, left, self.sp),
-                 dist.P2POp(dist.irecv, buf, right, self.sp)]):
-            req.wait()
-        return buf
+        return self.gather(x, self.sp, self.n_sp)[(self.s + 1) % self.n_sp]
 
     def regroup(self, a: torch.Tensor, b: int, k: int) -> torch.Tensor:
         """Per-window results [b*k, ...] of each shard's strided share ->
@@ -193,8 +195,7 @@ class _ShardedRx(_MeshRun):
         bl = x2.shape[0] // n
         f = ax.d * ax.n_sp + ax.s
         rows = slice(f * bl, (f + 1) * bl)
-        return (x2[rows].to(ax.device).contiguous(),
-                t0[rows].to(ax.device).contiguous())
+        return ax.local(x2[rows]), ax.local(t0[rows])
 
     def forward(self, x2, t0) -> dict:
         self.ax.check()

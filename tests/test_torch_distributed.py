@@ -8,8 +8,9 @@ shard edge), `sharded_capture_decode_auto` (and with `generic=True` on 2
 ranks) and `_auto2` on the same numpy captures and saves its outputs: every
 rank's are equal to each other's and to the JAX mesh's, exactly or within
 `torch_parity.LOOP_TOL`. The port's Viterbi runs at radix 3, as the JAX CPU
-decoder does. Also: `_smoke_worker` on 2 processes, `measure_scaling` on 2
-ranks, and the single-process fallback of `init_distributed`.
+decoder does. Also: `_smoke_worker` on 2 processes, the scaling harness
+on 2 ranks (each mesh's rate from its slowest rank), and the
+single-process fallback of `init_distributed`.
 """
 import dataclasses
 import json
@@ -24,6 +25,7 @@ from ieee80211_tpu.parallel import sharded as jsh
 from ieee80211_tpu.utils import c2r
 from test_sharded_capture import _build, _mixed_capture
 from test_sharded_dual import _capture, _setup
+from ieee80211_tpu_torch.perf.scaling import _packet_batch
 from torch_parity import assert_same, finish_ranks, spawn_ranks
 
 TIMEOUT = 300   # s for a group of worker processes
@@ -78,10 +80,21 @@ res = radix3(psh.sharded_capture_decode_auto2(
     branch_cap=a2["branch_cap"]))(data["dual"])
 out.update({f"auto2/{k}": v for k, v in res.items()})
 if spec["scaling"]:
-    from ieee80211_tpu_torch.perf.scaling import measure_scaling
-    rates = measure_scaling(device_counts=[1, 2], batch_per_device=8,
-                            iters=1, device="cpu")
-    out["scaling/rates"] = torch.tensor([rates[1], rates[2]])
+    from ieee80211_tpu_torch.perf.scaling import (measure_scaling,
+                                                  scaling_runs)
+    runs = scaling_runs(device_counts=[1, 2], batch_per_device=8, iters=1,
+                        device="cpu")
+    rates = measure_scaling(device_counts=[2], batch_per_device=8, iters=1,
+                            device="cpu")
+    out["scaling/rates"] = torch.tensor(list(rates.items()),
+                                        dtype=torch.float64)
+    for key in ("samples_per_s", "ms", "slice_ms"):
+        out[f"scaling/{key}"] = torch.tensor([runs[1][key], runs[2][key]],
+                                             dtype=torch.float64)
+    out["scaling/ranks_ms_1"] = torch.tensor(runs[1]["ranks_ms"],
+                                             dtype=torch.float64)
+    out["scaling/ranks_ms_2"] = torch.tensor(runs[2]["ranks_ms"],
+                                             dtype=torch.float64)
 np.savez(f"{spec['out']}/rank{dist.get_rank()}.npz",
          **{k: v.numpy() for k, v in out.items()})
 dist.destroy_process_group()
@@ -145,8 +158,20 @@ def test_loops_across_ranks_equal_jax(tmp_path, n_ranks):
             np.testing.assert_array_equal(v, got[0][k], err_msg=(r, k))
     g = got[0]
     if n_ranks == 2:
-        rates = g.pop("scaling/rates")
-        assert rates.shape == (2,) and np.all(rates > 0)
+        # the rate of each mesh from its slowest rank's time; the cut of
+        # each rank's rows timed apart
+        sc = {k.split("/")[1]: g.pop(k) for k in list(g)
+              if k.startswith("scaling/")}
+        assert sc["ranks_ms_1"].shape == (1,) and sc["ranks_ms_2"].shape == (2,)
+        np.testing.assert_array_equal(
+            sc["ms"], [sc["ranks_ms_1"].max(), sc["ranks_ms_2"].max()])
+        width = _packet_batch(8)[2].shape[1]
+        np.testing.assert_allclose(
+            sc["samples_per_s"], np.array([8, 16]) * width
+            / (sc["ms"] * 1e-3), rtol=1e-12)
+        assert np.all(sc["samples_per_s"] > 0) and np.all(sc["slice_ms"] > 0)
+        assert sc["rates"].shape == (1, 2) and sc["rates"][0, 0] == 2
+        assert sc["rates"][0, 1] > 0
     for case in {k.split("/")[0] for k in ref}:
         assert_same({k.split("/")[1]: v for k, v in ref.items()
                      if k.startswith(case + "/")},

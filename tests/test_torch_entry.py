@@ -7,13 +7,13 @@ CFO and SNR within test_torch_pipeline's CFO_TOL / SNR_TOL. The envelope's
 captures, branches and windows equal a literal copy of the JAX dryrun's
 recipe built with the JAX package's MAC, specs, TX and MrcDataDecoder.
 `dryrun_multichip` runs on a 1-rank gloo group in the test process and
-on 2 and 4 gloo ranks in subprocesses ((dp, sp) = (1, 2) and (2, 2)); every
+on 2, 4 and 8 gloo ranks in subprocesses ((dp, sp) = (1, 2), (2, 2) and
+(4, 2)); every
 rank returns the same outputs, the counts are 3 dp / dp / dp / dp, and each
 stage's outputs equal the JAX package's `sharded_capture_decode_auto2` on
 that JAX-built recipe, on a JAX mesh of the same shape
 (`torch_parity.assert_same`), the port's Viterbi at radix 3 as the JAX CPU
-decoder runs. The 8-rank dryrun of tests/test_parallel.py is left out to
-keep the suite's time.
+decoder runs.
 """
 import json
 
@@ -215,17 +215,19 @@ _DECODED = ("bits", "fmt", "mcs", "nss", "n_sym", "psdu_len", "ampdu",
             "ndp_ltf")
 
 
-def _assert_stage_same(stage, ref: dict, got: dict) -> None:
-    """assert_same on one stage's outputs. The MU stage's capture holds no
-    noise, and its slots without a trigger (trig_t at the sentinel, the
-    capture's length) cut the wrapped halo, where the sync lands in the
-    STF and the SIG tones divide by channel estimates of rounding size:
-    what the loop decodes there is rounding noise, and the JAX loop's own
-    values move when the capture is scaled by 1 +- 1e-7
-    (test_untriggered_mu_slots_are_rounding_noise). There the decoded
-    outputs are held on the triggered slots only; trig_t, ok, mu, ndp and
-    the overflow flags on every slot."""
-    if stage.name == "mu":
+def _assert_stage_same(stage, ref: dict, got: dict, n_devices: int) -> None:
+    """assert_same on one stage's outputs of the n_devices envelope. The
+    MU stage's capture holds no noise, and its slots without a trigger
+    (trig_t at the sentinel, the capture's length) cut the wrapped halo,
+    where the sync lands in the STF and the SIG tones divide by channel
+    estimates of rounding size: what the loop decodes there is rounding
+    noise, and the JAX loop's own values move when the capture is scaled
+    by 1 +- 1e-7 (test_untriggered_mu_slots_are_rounding_noise). So do the
+    80 MHz stage's on 8 devices, (dp, sp) = (4, 2)
+    (test_untriggered_wideband_slots_are_rounding_noise); on fewer it is
+    held whole. There the decoded outputs are held on the triggered slots
+    only; trig_t, ok, mu, ndp and the overflow flags on every slot."""
+    if stage.name == "mu" or (stage.name == "wideband" and n_devices == 8):
         np.testing.assert_array_equal(got["trig_t"], ref["trig_t"])
         idle = ref["trig_t"] >= stage.capture.shape[2]
         assert idle.any() and not idle.all()
@@ -251,6 +253,23 @@ def test_untriggered_mu_slots_are_rounding_noise():
         np.testing.assert_array_equal(a[k][0, ~idle], b[k][0, ~idle])
     assert a["ok"][0, 0] and a["mu"][0, 0]
     assert np.all(a["n_sym"][0, idle] != b["n_sym"][0, idle])
+
+
+def test_untriggered_wideband_slots_are_rounding_noise():
+    """The JAX loop alone on the 80 MHz capture of the 8-device envelope
+    ((dp, sp) = (4, 2)) and on it scaled by 1 + 1e-7: the triggered slots
+    decode the same, some slots without a trigger do not."""
+    cap, branches, w, opts = _former_recipe(8)[2]
+    run = jsh.sharded_capture_decode_auto2(jax_mesh(8, sp=2), branches, w,
+                                           **opts)
+    a, b = ({k: np.asarray(v) for k, v in run(c2r(x)).items()}
+            for x in (cap, cap * np.float32(1 + 1e-7)))
+    idle = a["trig_t"] >= cap.shape[2]
+    assert idle.any() and not idle.all()
+    for k in ("bits", "ok", "fmt", "n_sym", "psdu_len"):
+        np.testing.assert_array_equal(a[k][~idle], b[k][~idle], err_msg=k)
+    assert a["ok"].sum() == 4
+    assert np.any(a["n_sym"][idle] != b["n_sym"][idle])
 
 
 def _want(n_devices: int) -> dict:
@@ -279,7 +298,7 @@ def test_dryrun_one_rank_equals_jax(monkeypatch):
     assert set(res["outputs"]) == set(ref)
     for st in entry.envelope_captures(1):
         _assert_stage_same(st, ref[st.name], {
-            k: v.numpy() for k, v in res["outputs"][st.name].items()})
+            k: v.numpy() for k, v in res["outputs"][st.name].items()}, 1)
 
 
 def test_dryrun_needs_enough_ranks():
@@ -332,9 +351,10 @@ dist.destroy_process_group()
 """
 
 
-@pytest.mark.parametrize("n_ranks", [2, 4])
+@pytest.mark.parametrize("n_ranks", [2, 4, 8])
 def test_dryrun_across_ranks_equal_jax(tmp_path, n_ranks):
-    """dryrun_multichip(n) on n gloo ranks: (1, 2) and (2, 2) meshes, the
+    """dryrun_multichip(n) on n gloo ranks: (1, 2), (2, 2) and (4, 2)
+    meshes (8 is tests/test_parallel.py's test_dryrun_multichip_8), the
     mixed stage's third packet straddling the shard edge, the MU branch and
     the 80 MHz loop at sp = 2. Then dryrun_multichip(n / 2) in the same
     world: the ranks outside its mesh return None."""
@@ -358,7 +378,7 @@ def test_dryrun_across_ranks_equal_jax(tmp_path, n_ranks):
     for st in entry.envelope_captures(n_ranks):
         _assert_stage_same(st, ref[st.name], {
             k.split("/")[1]: v for k, v in g.items()
-            if k.startswith(st.name + "/")})
+            if k.startswith(st.name + "/")}, n_ranks)
     half = n_ranks // 2
     for r in range(n_ranks):
         h = dict(np.load(tmp_path / f"n{half}_rank{r}.npz"))

@@ -22,6 +22,7 @@ from ieee80211_tpu.ops import sync as jsync
 from ieee80211_tpu.specs import BW, F, Mod, tables
 from ieee80211_tpu_torch.models import RxPipeline, tables_from_numpy
 from ieee80211_tpu_torch.perf.bench import Sizes
+from ieee80211_tpu_torch.perf.multicard import LOOPS as MULTICARD_LOOPS
 from torch_parity import port_mod
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -154,6 +155,7 @@ def test_import_never_loads_jax(import_probe):
             "ieee80211_tpu_torch.perf.stages",
             "ieee80211_tpu_torch.perf.floor",
             "ieee80211_tpu_torch.perf.branch_floor",
+            "ieee80211_tpu_torch.perf.multicard",
             "ieee80211_tpu_torch.entry"} <= set(
                 import_probe["modules"])
     assert import_probe["jax"] == []
@@ -265,8 +267,8 @@ def _slice_entry_points(tmp_path=None):
                                               stream_decode)
     from ieee80211_tpu_torch.mu import sounding
     from ieee80211_tpu_torch.perf import (acceptance, bench, branch_floor,
-                                          floor, mimo_pdr_sweep, pdr,
-                                          pdr_sweep, stages)
+                                          floor, mimo_pdr_sweep, multicard,
+                                          pdr, pdr_sweep, stages)
     from ieee80211_tpu_torch.rx import MimoReceiver, SisoReceiver
     from ieee80211_tpu_torch.specs.modulation import ppdu_params_aggregate
     from ieee80211_tpu_torch.tx import (MuTxPipeline, TxPipeline,
@@ -320,6 +322,10 @@ def _slice_entry_points(tmp_path=None):
                                                          **kw),
         "perf.branch_floor.measure": lambda **kw: branch_floor.measure(
             (), packets=1, caps=(), **kw),
+        # the sharded loops' 1-rank pass on TINY's captures
+        "perf.multicard.run": lambda **kw: multicard.run(
+            sizes=multicard.Sizes(stream=TINY, rx_batch=4, fixed_m=1),
+            iters=1, emit=lambda line: None, **kw),
     }
 
 
@@ -343,6 +349,11 @@ _CPU_RESULTS = {
         r["full"] == [] and r["samples"] > 0 for r in out.values()),
     "perf.branch_floor.measure": lambda out: (
         out["branch_loop"] == {} and out["routed"]["window"] > 0),
+    "perf.multicard.run": lambda out: (
+        [(ln["loop"], ln["mesh"]) for ln in out["lines"]]
+        == [(loop, [1, 1]) for loop in MULTICARD_LOOPS]
+        and all(ln["cards"] == [{"name": "cpu", "power_limit": None}]
+                for ln in out["lines"])),
 }
 
 
