@@ -22,6 +22,7 @@ from ..ops import coding, demod, sync
 from ..specs import BW, CR, F, Mod, tables
 from ..specs import interleaver as ilv
 from ..utils.device import entry_device
+from ..utils.metrics import call_span, span
 from ..utils.riq import r2c
 
 OFF_LSIG = 128
@@ -219,13 +220,29 @@ class RxStep(nn.Module):
         return coding.descramble(bits, self.prbs, self.seed_inv)
 
     def forward(self, x2: torch.Tensor, t0: torch.Tensor):
-        ltf_start, cfo, snr = self.sync_front(x2, t0)
-        z = self.derotate(self.window(x2, ltf_start), cfo)
-        ltf_g, sig_g, nl_g, data_g = self.grids(z)
-        lchan, lsig_ok = self.lsig(ltf_g, sig_g)
-        llrs = self.data_llrs(data_g, self.chan_est(lchan, nl_g))
-        return dict(bits=self.descramble(self.viterbi(llrs)),
-                    ltf_start=ltf_start, cfo=cfo, snr=snr, lsig_ok=lsig_ok)
+        """The nine stages in order, each a span `step.<stage>` under the
+        call's `step` (utils/metrics.py)."""
+        with call_span("step"):
+            with span("step.sync_front"):
+                ltf_start, cfo, snr = self.sync_front(x2, t0)
+            with span("step.window"):
+                z2 = self.window(x2, ltf_start)
+            with span("step.derotate"):
+                z = self.derotate(z2, cfo)
+            with span("step.grids"):
+                ltf_g, sig_g, nl_g, data_g = self.grids(z)
+            with span("step.lsig"):
+                lchan, lsig_ok = self.lsig(ltf_g, sig_g)
+            with span("step.chan_est"):
+                chan = self.chan_est(lchan, nl_g)
+            with span("step.data_llrs"):
+                llrs = self.data_llrs(data_g, chan)
+            with span("step.viterbi"):
+                bits = self.viterbi(llrs)
+            with span("step.descramble"):
+                bits = self.descramble(bits)
+            return dict(bits=bits, ltf_start=ltf_start, cfo=cfo, snr=snr,
+                        lsig_ok=lsig_ok)
 
 
 class RxPipeline(nn.Module):

@@ -47,6 +47,7 @@ from ..specs import BW, CR, F, Mod, tables
 from ..specs import interleaver as ilv
 from ..specs.tables import crc8_bits
 from ..utils.device import entry_device
+from ..utils.metrics import span
 from ..utils.riq import r2c
 
 # MU VHT-SIG-B geometry per bandwidth: (length-field bits, total info bits
@@ -171,7 +172,11 @@ class MuSigbTables(_TableModule):
 @lru_cache(maxsize=64)
 def _cached_sigb_tables(q: int, stream_idx: int, n_sts_total: int,
                         device: torch.device) -> MuSigbTables:
-    return MuSigbTables(q, stream_idx, n_sts_total).to(device)
+    with span("rx.decoder_build") as sp:
+        if sp:
+            sp.attrs.update(kind="mu_sigb", stream=stream_idx,
+                            n_sts=n_sts_total)
+        return MuSigbTables(q, stream_idx, n_sts_total).to(device)
 
 
 def get_mu_sigb_tables(q: int, stream_idx: int, n_sts_total: int,
@@ -302,7 +307,11 @@ class MuStaDecoder(_TableModule):
 @lru_cache(maxsize=64)
 def _cached_sta(mod: Mod, n_sym: int, psdu_len: int, mupos: int,
                 n_sts_total: int, device: torch.device) -> MuStaDecoder:
-    return MuStaDecoder(mod, n_sym, psdu_len, mupos, n_sts_total).to(device)
+    with span("rx.decoder_build") as sp:
+        if sp:
+            sp.attrs.update(kind="mu_sta", mod=str(mod), n_sym=n_sym)
+        return MuStaDecoder(mod, n_sym, psdu_len, mupos,
+                            n_sts_total).to(device)
 
 
 def get_mu_sta_decoder(mod: Mod, n_sym: int, psdu_len: int, mupos: int,
@@ -567,8 +576,11 @@ class MuStaDataDecoder(_TableModule):
 @lru_cache(maxsize=64)
 def _cached_data(mod: Mod, n_sym_bucket: int, stream_idx: int,
                  n_sts_total: int, device: torch.device) -> MuStaDataDecoder:
-    return MuStaDataDecoder(mod, n_sym_bucket, stream_idx,
-                            n_sts_total).to(device)
+    with span("rx.decoder_build") as sp:
+        if sp:
+            sp.attrs.update(kind="mu_data", mod=str(mod), bucket=n_sym_bucket)
+        return MuStaDataDecoder(mod, n_sym_bucket, stream_idx,
+                                n_sts_total).to(device)
 
 
 def get_mu_sta_data_decoder(mod: Mod, n_sym_bucket: int, stream_idx: int,

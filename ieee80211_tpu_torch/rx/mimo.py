@@ -33,6 +33,7 @@ from ..ops import coding, demod, sync
 from ..specs import BW, F, Mod, tables
 from ..specs import interleaver as ilv
 from ..specs.modulation import ppdu_params_nonaggregate
+from ..utils.metrics import call_span, on_lane, span
 from ..utils.riq import r2c
 from .receiver import (MIN_TRIGGER_GAP, OFF_NLLTF, PacketResult,
                        SisoDataDecoder, SisoReceiver, _device,
@@ -292,7 +293,11 @@ class MrcDataDecoder(_MultiChainDecoder):
 @lru_cache(maxsize=64)
 def _cached_mimo(mod: Mod, n_sym_bucket: int, detector: str,
                  device: torch.device) -> MimoDataDecoder:
-    return MimoDataDecoder(mod, n_sym_bucket, detector).to(device)
+    with span("rx.decoder_build") as sp:
+        if sp:
+            sp.attrs.update(kind="mimo_" + detector, mod=str(mod),
+                            bucket=n_sym_bucket)
+        return MimoDataDecoder(mod, n_sym_bucket, detector).to(device)
 
 
 def get_mimo_decoder(mod: Mod, n_sym_bucket: int, detector: str = "ml",
@@ -306,7 +311,10 @@ def get_mimo_decoder(mod: Mod, n_sym_bucket: int, detector: str = "ml",
 @lru_cache(maxsize=64)
 def _cached_mrc(mod: Mod, n_sym_bucket: int,
                 device: torch.device) -> MrcDataDecoder:
-    return MrcDataDecoder(mod, n_sym_bucket).to(device)
+    with span("rx.decoder_build") as sp:
+        if sp:
+            sp.attrs.update(kind="mrc", mod=str(mod), bucket=n_sym_bucket)
+        return MrcDataDecoder(mod, n_sym_bucket).to(device)
 
 
 def get_mrc_decoder(mod: Mod, n_sym_bucket: int,
@@ -411,29 +419,39 @@ class MimoReceiver(SisoReceiver):
         capture = np.ascontiguousarray(capture, dtype=np.complex64)
         n = capture.shape[1]
         npad = next_pow2(n + 4096, lo=1 << 15)
-        if self._mode(npad) == "int8" and native.available():
-            buf = self._host_buffer((2, min(_round_64k(n), npad), 2),
-                                    torch.int8)
-            q8 = buf.numpy()
+        with span("rx.ingest") as sp:
+            if sp:
+                sp.attrs.update(k=sp.n, mode=self._mode(npad), samples=n)
+            if self._mode(npad) == "int8" and native.available():
+                buf = self._host_buffer((2, min(_round_64k(n), npad), 2),
+                                        torch.int8)
+                q8 = buf.numpy()
 
-            def scan_one(c):
-                return native.scan_quantize(
-                    capture[c], q8[c, :n], thresh=0.5, plateau=20 * self.q,
-                    min_gap=MIN_TRIGGER_GAP * self.q, lag=16 * self.q)
+                def scan_one(c):
+                    with span("rx.ingest.scan") as sc:
+                        if sc:
+                            sc.attrs["chain"] = c
+                        return native.scan_quantize(
+                            capture[c], q8[c, :n], thresh=0.5,
+                            plateau=20 * self.q,
+                            min_gap=MIN_TRIGGER_GAP * self.q,
+                            lag=16 * self.q)
 
-            with ThreadPoolExecutor(max_workers=2) as pool:
-                res = list(pool.map(scan_one, range(2)))
-            t0s = merge_triggers([np.asarray(t, np.int64) for t, _ in res],
-                                 dedup_gap=200 * self.q)
-            scales = np.asarray([s for _, s in res],
-                                np.float32).reshape(2, 1, 1)
-            return t0s, self._cap_to_device(buf, scales, npad), npad
-        t0s = merge_triggers(
-            [sync.find_triggers_np(capture[c], q=self.q,
-                                   min_gap=MIN_TRIGGER_GAP)
-             for c in range(2)], dedup_gap=200 * self.q)
-        cap_dev, npad = self._upload(capture)
-        return t0s, cap_dev, npad
+                with ThreadPoolExecutor(max_workers=2) as pool:
+                    res = list(pool.map(on_lane(scan_one), range(2)))
+                t0s = merge_triggers(
+                    [np.asarray(t, np.int64) for t, _ in res],
+                    dedup_gap=200 * self.q)
+                scales = np.asarray([s for _, s in res],
+                                    np.float32).reshape(2, 1, 1)
+                return t0s, self._cap_to_device(buf, scales, npad), npad
+            with span("rx.ingest.scan"):
+                t0s = merge_triggers(
+                    [sync.find_triggers_np(capture[c], q=self.q,
+                                           min_gap=MIN_TRIGGER_GAP)
+                     for c in range(2)], dedup_gap=200 * self.q)
+            cap_dev, npad = self._upload(capture)
+            return t0s, cap_dev, npad
 
     def _sig_parse(self, cap_dev, t_clamp, t0, wlen):
         return sig_parse_mimo_capture(cap_dev, t_clamp, t0, wlen, self.sig)
@@ -461,14 +479,15 @@ class MimoReceiver(SisoReceiver):
             return collected
         res_by_i = dict(collected)
         retry = []
-        for items, *_ in futs:
-            for i, p in items:
-                if p.mu or p.mod.nSS != 2:
-                    continue
-                r = res_by_i.get(i)
-                if r is not None and r.fcs_ok and r.sigb_ok is not False:
-                    continue
-                retry.append((i, p))
+        with span("rx.plan"):
+            for items, *_ in futs:
+                for i, p in items:
+                    if p.mu or p.mod.nSS != 2:
+                        continue
+                    r = res_by_i.get(i)
+                    if r is not None and r.fcs_ok and r.sigb_ok is not False:
+                        continue
+                    retry.append((i, p))
         if not retry:
             return collected
         cap_dev, npad = ctx
@@ -606,27 +625,31 @@ class MimoReceiver(SisoReceiver):
         if capture.ndim != 2 or capture.shape[0] != 2:
             raise ValueError(f"expected a [2, N] capture, got "
                              f"{capture.shape}")
-        results: List[PacketResult] = []
-        ndps: List[list] = []
-        t0s, cap_dev, npad = self._ingest(capture)
-        if len(t0s) == 0:
+        with call_span("rx.call") as sp:
+            if sp:
+                sp.attrs["captures"] = 1
+            results: List[PacketResult] = []
+            ndps: List[list] = []
+            t0s, cap_dev, npad = self._ingest(capture)
+            if len(t0s) == 0:
+                return results, ndps
+            meta = self._parse_sigs(cap_dev, npad, t0s)
+            with span("rx.plan"):
+                self.stats.n_trigger += len(t0s)
+                self.stats.n_sig_ok += int(np.sum(meta["lsig_ok"][:len(t0s)]))
+                plans, ndp_plans = self._plan_batch(capture.shape[1], meta,
+                                                    len(t0s))
+                for p in ndp_plans:
+                    nd = self._extract_ndp(capture, p)
+                    if nd is not None:
+                        ndps.append(nd)
+            self.stats.n_ndp += len(ndps)
+            futs = self._dispatch_with_mu(cap_dev, npad, plans,
+                                          capture.shape[1], meta, len(t0s))
+            for i, r in self._finish_plans(futs):
+                self.stats.record(r.fmt.name, r.mcs, r.fcs_ok, mu=r.mu)
+                results.append(r)
             return results, ndps
-        meta = self._parse_sigs(cap_dev, npad, t0s)
-        self.stats.n_trigger += len(t0s)
-        self.stats.n_sig_ok += int(np.sum(meta["lsig_ok"][:len(t0s)]))
-        plans, ndp_plans = self._plan_batch(capture.shape[1], meta,
-                                            len(t0s))
-        for p in ndp_plans:
-            nd = self._extract_ndp(capture, p)
-            if nd is not None:
-                ndps.append(nd)
-        self.stats.n_ndp += len(ndps)
-        futs = self._dispatch_with_mu(cap_dev, npad, plans, capture.shape[1],
-                                      meta, len(t0s))
-        for i, r in self._finish_plans(futs):
-            self.stats.record(r.fmt.name, r.mcs, r.fcs_ok, mu=r.mu)
-            results.append(r)
-        return results, ndps
 
     def _extract_ndp(self, capture: np.ndarray, p) -> Optional[list]:
         """CFO-corrected VHT-LTF windows of a detected NDP, one NdpCapture

@@ -52,7 +52,7 @@ from ..specs.crc import fcs_ok
 from ..specs.modulation import ppdu_params_nonaggregate
 from ..specs.tables import crc8_bits
 from ..utils.device import entry_device as _device
-from ..utils.metrics import DecodeStats
+from ..utils.metrics import DecodeStats, call_span, on_lane, span
 from ..utils.riq import r2c
 
 # field offsets relative to the LTF data start (= STF start + 192 @20 MHz)
@@ -686,7 +686,10 @@ def _bucket(n_sym: int) -> int:
 @lru_cache(maxsize=64)
 def _cached_decoder(mod: Mod, n_sym_bucket: int,
                     device: torch.device) -> SisoDataDecoder:
-    return SisoDataDecoder(mod, n_sym_bucket).to(device)
+    with span("rx.decoder_build") as sp:
+        if sp:
+            sp.attrs.update(kind="siso", mod=str(mod), bucket=n_sym_bucket)
+        return SisoDataDecoder(mod, n_sym_bucket).to(device)
 
 
 def get_data_decoder(mod: Mod, n_sym_bucket: int,
@@ -836,9 +839,14 @@ class SisoReceiver:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _wait(self, fetch: _Fetch) -> np.ndarray:
+    def _wait(self, fetch: _Fetch, what: str) -> np.ndarray:
+        """The host waits for a fetch: `what` names it in the
+        `rx.fetch_wait` span (trigger, meta, data or mu_sigb)."""
         self.n_waits += 1
-        return fetch.result()
+        with span("rx.fetch_wait") as sp:
+            if sp:
+                sp.attrs["what"] = what
+            return fetch.result()
 
     def _mode(self, npad: int) -> str:
         if self.ingest == "auto":
@@ -857,12 +865,13 @@ class SisoReceiver:
         float, or a float32 array that broadcasts over the buffer (one
         scale per chain). An int8 value times the float32 scale is the JAX
         package's per-window dequantization."""
-        dev = buf.to(self.device, non_blocking=True)
-        if isinstance(scale, np.ndarray):
-            dev = dev.to(torch.float32) * self._to_device(scale)
-        elif scale is not None:
-            dev = dev.to(torch.float32) * float(np.float32(scale))
-        return _pad_capture(dev, npad)
+        with span("rx.ingest.upload"):
+            dev = buf.to(self.device, non_blocking=True)
+            if isinstance(scale, np.ndarray):
+                dev = dev.to(torch.float32) * self._to_device(scale)
+            elif scale is not None:
+                dev = dev.to(torch.float32) * float(np.float32(scale))
+            return _pad_capture(dev, npad)
 
     # -- upload ------------------------------------------------------------
     def _upload(self, capture: np.ndarray):
@@ -905,30 +914,43 @@ class SisoReceiver:
         capture = np.ascontiguousarray(capture, dtype=np.complex64)
         n = len(capture)
         npad = next_pow2(n + 4096, lo=1 << 15)
-        if self._mode(npad) == "int8" and native.available():
-            buf = self._host_buffer((min(_round_64k(n), npad), 2),
-                                    torch.int8)
-            t0s, s = native.scan_quantize(
-                capture, buf.numpy()[:n], thresh=0.5, plateau=20 * self.q,
-                min_gap=MIN_TRIGGER_GAP * self.q, lag=16 * self.q)
-            return (np.asarray(t0s, dtype=np.int64),
-                    self._cap_to_device(buf, s, npad), npad)
-        t0s = np.asarray(sync.find_triggers_np(
-            capture, q=self.q, min_gap=MIN_TRIGGER_GAP), dtype=np.int64)
-        cap_dev, npad = self._upload(capture)
-        return t0s, cap_dev, npad
+        with span("rx.ingest") as sp:
+            if sp:
+                sp.attrs.update(k=sp.n, mode=self._mode(npad), samples=n)
+            if self._mode(npad) == "int8" and native.available():
+                buf = self._host_buffer((min(_round_64k(n), npad), 2),
+                                        torch.int8)
+                with span("rx.ingest.scan"):
+                    t0s, s = native.scan_quantize(
+                        capture, buf.numpy()[:n], thresh=0.5,
+                        plateau=20 * self.q, min_gap=MIN_TRIGGER_GAP * self.q,
+                        lag=16 * self.q)
+                return (np.asarray(t0s, dtype=np.int64),
+                        self._cap_to_device(buf, s, npad), npad)
+            with span("rx.ingest.scan"):
+                t0s = np.asarray(sync.find_triggers_np(
+                    capture, q=self.q, min_gap=MIN_TRIGGER_GAP),
+                    dtype=np.int64)
+            cap_dev, npad = self._upload(capture)
+            return t0s, cap_dev, npad
 
     def _ingest_device(self, capture: np.ndarray, k_max: int = 4096):
         """Quantize + upload + the trigger scan ON THE DEVICE, fetched
         without a wait. Returns (trigger fetch, cap_dev, npad); the fetch
         holds [n_trig, t0_0, ..., t0_{k_max-1}] (see _trigger_starts)."""
-        cap_dev, npad = self._upload(capture)
-        trig, ntrig = sync.trigger_scan_capture(
-            cap_dev, k_max=k_max, q=self.q, min_gap=MIN_TRIGGER_GAP)
-        return _Fetch(torch.cat([ntrig[None], trig])), cap_dev, npad
+        with span("rx.ingest") as sp:
+            cap_dev, npad = self._upload(capture)
+            if sp:
+                sp.attrs.update(k=sp.n, mode=self._mode(npad),
+                                samples=capture.shape[-1])
+            with span("rx.ingest.scan"):
+                trig, ntrig = sync.trigger_scan_capture(
+                    cap_dev, k_max=k_max, q=self.q, min_gap=MIN_TRIGGER_GAP)
+                return (_Fetch(torch.cat([ntrig[None], trig])), cap_dev,
+                        npad)
 
     def _trigger_starts(self, fetch: _Fetch) -> np.ndarray:
-        arr = self._wait(fetch)
+        arr = self._wait(fetch, "trigger")
         n_t = min(int(arr[0]), len(arr) - 1)
         return arr[1:1 + n_t].astype(np.int64)
 
@@ -956,12 +978,7 @@ class SisoReceiver:
             if st2[k] is None:
                 return
             t0s, cap_dev, npad, packed, t_clamp = st2[k]
-            meta = self._finish_sigs(packed, t_clamp)
-            self.stats.n_trigger += len(t0s)
-            self.stats.n_sig_ok += int(np.sum(meta["lsig_ok"][:len(t0s)]))
-            plans, ndp_plans = self._plan_batch(caps[k].shape[-1], meta,
-                                                len(t0s))
-            self._surface_stream_ndps(k, caps[k], ndp_plans)
+            meta, plans = self._plan(k, caps[k], t0s, packed, t_clamp)
             st3[k] = self._dispatch_with_mu(cap_dev, npad, plans,
                                             caps[k].shape[-1], meta,
                                             len(t0s))
@@ -980,11 +997,12 @@ class SisoReceiver:
             st3[k] = None
 
         with ThreadPoolExecutor(max_workers=1) as ex:
-            fut = ex.submit(self._ingest_device, caps[0]) if n else None
+            ingest = on_lane(self._ingest_device)
+            fut = ex.submit(ingest, caps[0]) if n else None
             for k in range(n):
-                st1[k] = fut.result()
-                fut = ex.submit(self._ingest_device, caps[k + 1]) \
-                    if k + 1 < n else None
+                with span("rx.ingest_wait"):
+                    st1[k] = fut.result()
+                fut = ex.submit(ingest, caps[k + 1]) if k + 1 < n else None
                 if k >= 1:
                     stage_a(k - 1)
                 if k >= 2:
@@ -1013,25 +1031,30 @@ class SisoReceiver:
         (VHT, nSym == 0) yields an mu.sounding.NdpCapture with the
         CFO-corrected VHT-LTF windows.
         """
-        capture = np.ascontiguousarray(capture, dtype=np.complex64)
-        t0s, cap_dev, npad = self._ingest(capture)
-        results: List[PacketResult] = []
-        ndps = []
-        if len(t0s) == 0:
-            return results, ndps
-        meta = self._parse_sigs(cap_dev, npad, t0s)
-        self.stats.n_trigger += len(t0s)
-        self.stats.n_sig_ok += int(np.sum(meta["lsig_ok"][:len(t0s)]))
-        plans, ndp_plans = self._plan_batch(len(capture), meta, len(t0s))
-        for p in ndp_plans:
-            ndps.append(self._extract_ndp(capture, p))
-        futs = self._dispatch_with_mu(cap_dev, npad, plans, len(capture),
-                                      meta, len(t0s))
-        self.stats.n_ndp += sum(n is not None for n in ndps)
-        for i, r in self._finish_plans(futs):
-            self.stats.record(r.fmt.name, r.mcs, r.fcs_ok, mu=r.mu)
-            results.append(r)
-        return results, [n for n in ndps if n is not None]
+        with call_span("rx.call") as sp:
+            if sp:
+                sp.attrs["captures"] = 1
+            capture = np.ascontiguousarray(capture, dtype=np.complex64)
+            t0s, cap_dev, npad = self._ingest(capture)
+            results: List[PacketResult] = []
+            ndps = []
+            if len(t0s) == 0:
+                return results, ndps
+            meta = self._parse_sigs(cap_dev, npad, t0s)
+            with span("rx.plan"):
+                self.stats.n_trigger += len(t0s)
+                self.stats.n_sig_ok += int(np.sum(meta["lsig_ok"][:len(t0s)]))
+                plans, ndp_plans = self._plan_batch(len(capture), meta,
+                                                    len(t0s))
+                for p in ndp_plans:
+                    ndps.append(self._extract_ndp(capture, p))
+            futs = self._dispatch_with_mu(cap_dev, npad, plans, len(capture),
+                                          meta, len(t0s))
+            self.stats.n_ndp += sum(n is not None for n in ndps)
+            for i, r in self._finish_plans(futs):
+                self.stats.record(r.fmt.name, r.mcs, r.fcs_ok, mu=r.mu)
+                results.append(r)
+            return results, [n for n in ndps if n is not None]
 
     def decode_captures(self, captures) -> List[List[PacketResult]]:
         """Pipelined decode of a STREAM of captures.
@@ -1045,10 +1068,18 @@ class SisoReceiver:
         advances. Data packets only: decode_captures_full also surfaces
         NDP channel reports.
         """
-        caps = [np.ascontiguousarray(c, dtype=np.complex64)
-                for c in captures]
-        if self.trigger == "device":
-            return self._decode_captures_device(caps)
+        with call_span("rx.call") as sp:
+            caps = [np.ascontiguousarray(c, dtype=np.complex64)
+                    for c in captures]
+            if sp:
+                sp.attrs["captures"] = len(caps)
+            if self.trigger == "device":
+                return self._decode_captures_device(caps)
+            return self._decode_captures_host(caps)
+
+    def _decode_captures_host(self, caps) -> List[List[PacketResult]]:
+        """decode_captures with the trigger scan on the host, in the ingest
+        worker."""
         n = len(caps)
         st2: list = [None] * n
         st3: list = [None] * n
@@ -1059,12 +1090,7 @@ class SisoReceiver:
             if st2[k] is None:
                 return None
             t0s, cap_dev, npad, packed, t_clamp = st2[k]
-            meta = self._finish_sigs(packed, t_clamp)
-            self.stats.n_trigger += len(t0s)
-            self.stats.n_sig_ok += int(np.sum(meta["lsig_ok"][:len(t0s)]))
-            plans, ndp_plans = self._plan_batch(caps[k].shape[-1], meta,
-                                                len(t0s))
-            self._surface_stream_ndps(k, caps[k], ndp_plans)
+            meta, plans = self._plan(k, caps[k], t0s, packed, t_clamp)
             return self._dispatch_with_mu(cap_dev, npad, plans,
                                           caps[k].shape[-1], meta, len(t0s))
 
@@ -1075,11 +1101,12 @@ class SisoReceiver:
                 st3[k] = None
 
         with ThreadPoolExecutor(max_workers=1) as ex:
-            fut = ex.submit(self._ingest, caps[0]) if n else None
+            ingest = on_lane(self._ingest)
+            fut = ex.submit(ingest, caps[0]) if n else None
             for k in range(n):
-                t0s, cap_dev, npad = fut.result()
-                fut = ex.submit(self._ingest, caps[k + 1]) \
-                    if k + 1 < n else None
+                with span("rx.ingest_wait"):
+                    t0s, cap_dev, npad = fut.result()
+                fut = ex.submit(ingest, caps[k + 1]) if k + 1 < n else None
                 if len(t0s) > 0:
                     packed, t_clamp = self._dispatch_sigs(cap_dev, npad,
                                                           t0s)
@@ -1118,6 +1145,19 @@ class SisoReceiver:
 
     _stream_ndps = None
 
+    def _plan(self, k: int, capture: np.ndarray, t0s, packed: _Fetch,
+              t_clamp):
+        """A stream capture's meta fetch, counters, plan and NDPs. Returns
+        (meta, data plans)."""
+        with span("rx.plan"):
+            meta = self._finish_sigs(packed, t_clamp)
+            self.stats.n_trigger += len(t0s)
+            self.stats.n_sig_ok += int(np.sum(meta["lsig_ok"][:len(t0s)]))
+            plans, ndp_plans = self._plan_batch(capture.shape[-1], meta,
+                                                len(t0s))
+            self._surface_stream_ndps(k, capture, ndp_plans)
+            return meta, plans
+
     def _surface_stream_ndps(self, k: int, capture: np.ndarray, ndp_plans):
         if self._stream_ndps is None:
             self.stats.n_ndp += len(ndp_plans)
@@ -1149,22 +1189,23 @@ class SisoReceiver:
         """Submit the batched SIG parse; returns (meta fetch, t_clamp) for
         _finish_sigs. The non-legacy STF mid-packet also re-fires the
         trigger; those windows fail the SIG gates in _plan_batch."""
-        wlen = (SIGPARSE_WIN + 320) * self.q
-        bpad = -(-len(t0s) // 32) * 32
-        t_clamp = np.zeros(bpad, np.int32)
-        delta = np.zeros(bpad, np.int32)
-        tc = np.minimum(t0s, npad - wlen)
-        t_clamp[:len(t0s)] = tc
-        delta[:len(t0s)] = t0s - tc
-        idx = self._to_device(np.stack([t_clamp, delta]))
-        packed = self._sig_parse(cap_dev, idx[0], idx[1], wlen)
-        return _Fetch(packed), t_clamp
+        with span("rx.sig_dispatch"):
+            wlen = (SIGPARSE_WIN + 320) * self.q
+            bpad = -(-len(t0s) // 32) * 32
+            t_clamp = np.zeros(bpad, np.int32)
+            delta = np.zeros(bpad, np.int32)
+            tc = np.minimum(t0s, npad - wlen)
+            t_clamp[:len(t0s)] = tc
+            delta[:len(t0s)] = t0s - tc
+            idx = self._to_device(np.stack([t_clamp, delta]))
+            packed = self._sig_parse(cap_dev, idx[0], idx[1], wlen)
+            return _Fetch(packed), t_clamp
 
     def _sig_parse(self, cap_dev, t_clamp, t0, wlen):
         return sig_parse_capture(cap_dev, t_clamp, t0, wlen, self.sig)
 
     def _finish_sigs(self, packed: _Fetch, t_clamp) -> dict:
-        meta = _unpack_meta(self._wait(packed))
+        meta = _unpack_meta(self._wait(packed, "meta"))
         meta["win_start"] = t_clamp
         return meta
 
@@ -1183,75 +1224,94 @@ class SisoReceiver:
         for SU groups (the dual-chain receiver's exact-ML retry pass
         re-dispatches through it); MU groups decode in MuStaDataDecoder
         lanes, which also check each packet's SIG-B CRC-8."""
-        from ..mu.sounding import get_mu_sta_data_decoder
         groups: dict = {}
         for i, p in plans:
             groups.setdefault((p.mod, _bucket(p.n_sym), p.mu, p.stream_idx,
                                p.n_sts_tot), []).append((i, p))
         futs = []
         for (mod, nb, mu, si, nt), items in groups.items():
-            if mu:
-                dec = get_mu_sta_data_decoder(mod, nb, si, nt, self.device)
-            else:
-                dec = (decoder_for or self._decoder_for)(mod, nb)
-            w = dec.window_capacity()
-            g = len(items)
-            gp = group_pad(g)
-            # t_abs, ltf, n_valid, cfo (float32 bits), SIG-B CRC-8
-            rows = np.zeros((5, gp), np.int32)
-            cfo = np.zeros(gp, np.float32)
-            for j, (i, p) in enumerate(items):
-                tc = min(p.win_start, npad - w)
-                rows[0, j] = tc
-                rows[1, j] = p.ltf_start + (p.win_start - tc)
-                rows[2, j] = p.n_sym
-                rows[4, j] = p.sigb_crc
-                cfo[j] = p.cfo
-            if gp > g:       # pad rows replicate row 0 (results ignored)
-                rows[:, g:] = rows[:, :1]
-                cfo[g:] = cfo[0]
-            rows[3] = cfo.view(np.int32)
-            dev = self._to_device(rows)
-            args = (cap_dev, dev[0], dev[1], dev[3].view(torch.float32),
-                    dev[2])
-            packed, evm, sigb = (dec.decode_from_capture(*args, dev[4]) if mu
-                                 else dec.decode_from_capture(*args))
-            # fetch only the bytes any packet in the group can use, in
-            # 256-byte buckets
-            nb_need = 2 + max(p.psdu_len for _, p in items)
-            nb_pad = min(-(-nb_need // 256) * 256, int(packed.shape[1]))
-            evm = evm[:g].reshape(g, -1)     # [g, 1], or [g, 2] for 2x2
-            out = torch.cat([packed[:g, :nb_pad],
-                             evm.contiguous().view(torch.uint8),
-                             sigb[:g, None].to(torch.uint8)], dim=1)
-            futs.append((items, nb_pad, evm.shape[1], _Fetch(out)))
+            with span("rx.data_dispatch") as sp:
+                futs.append(self._dispatch_group(
+                    cap_dev, npad, mod, nb, mu, si, nt, items, decoder_for))
+                if sp:
+                    sp.attrs.update(mod=str(mod), bucket=nb, rows=len(items),
+                                    padded_rows=group_pad(len(items)))
         return futs
+
+    def _dispatch_group(self, cap_dev, npad, mod, nb, mu, si, nt, items,
+                        decoder_for):
+        """One decode group's launch and its fetch: (items, nb_pad, EVMs
+        per packet, fetch)."""
+        from ..mu.sounding import get_mu_sta_data_decoder
+        if mu:
+            dec = get_mu_sta_data_decoder(mod, nb, si, nt, self.device)
+        else:
+            dec = (decoder_for or self._decoder_for)(mod, nb)
+        w = dec.window_capacity()
+        g = len(items)
+        gp = group_pad(g)
+        # t_abs, ltf, n_valid, cfo (float32 bits), SIG-B CRC-8
+        rows = np.zeros((5, gp), np.int32)
+        cfo = np.zeros(gp, np.float32)
+        for j, (i, p) in enumerate(items):
+            tc = min(p.win_start, npad - w)
+            rows[0, j] = tc
+            rows[1, j] = p.ltf_start + (p.win_start - tc)
+            rows[2, j] = p.n_sym
+            rows[4, j] = p.sigb_crc
+            cfo[j] = p.cfo
+        if gp > g:       # pad rows replicate row 0 (results ignored)
+            rows[:, g:] = rows[:, :1]
+            cfo[g:] = cfo[0]
+        rows[3] = cfo.view(np.int32)
+        dev = self._to_device(rows)
+        args = (cap_dev, dev[0], dev[1], dev[3].view(torch.float32), dev[2])
+        packed, evm, sigb = (dec.decode_from_capture(*args, dev[4]) if mu
+                             else dec.decode_from_capture(*args))
+        # fetch only the bytes any packet in the group can use, in 256-byte
+        # buckets
+        nb_need = 2 + max(p.psdu_len for _, p in items)
+        nb_pad = min(-(-nb_need // 256) * 256, int(packed.shape[1]))
+        evm = evm[:g].reshape(g, -1)     # [g, 1], or [g, 2] for 2x2
+        out = torch.cat([packed[:g, :nb_pad],
+                         evm.contiguous().view(torch.uint8),
+                         sigb[:g, None].to(torch.uint8)], dim=1)
+        return items, nb_pad, evm.shape[1], _Fetch(out)
 
     def _finish_plans(self, futs):
         collected = []
         for items, nb_pad, n_ev, fetch in futs:
-            arr = self._wait(fetch)
-            pb = arr[:, :nb_pad]
-            # one bulk tolist() per group (per-packet numpy scalars are slow)
-            ev = arr[:, nb_pad:nb_pad + 4 * n_ev].copy().view(
-                np.float32).tolist()
-            sb = arr[:, nb_pad + 4 * n_ev].astype(bool).tolist()
-            for j, (i, p) in enumerate(items):
-                if p.mu and not sb[j]:
-                    # MU SIG-B CRC-8 mismatch vs the SERVICE field: the
-                    # (mcs, len) decode is unreliable; drop, as the
-                    # reference does (signalParserVhtB)
-                    continue
-                psdu = pb[j, 2:2 + p.psdu_len].tobytes()
-                # the joint EVM SNR is the mean of the per-stream ones
-                r = assemble_psdu(
-                    p.mod.fmt, p.mod, psdu, p.ampdu, p.cfo_hz, p.snr,
-                    sum(ev[j]) / n_ev, sssnr=tuple(ev[j]),
-                    sigb_ok=(sb[j] if p.mod.fmt == F.VHT else None))
-                r.mu = p.mu
-                collected.append((i, r))
+            arr = self._wait(fetch, "data")
+            with span("rx.assemble"):
+                collected += self._assemble_group(items, nb_pad, n_ev, arr)
         collected.sort(key=lambda t: t[0])
         return collected
+
+    @staticmethod
+    def _assemble_group(items, nb_pad: int, n_ev: int, arr: np.ndarray):
+        """A decode group's fetched bytes, EVMs and SIG-B flags ->
+        [(trigger_idx, PacketResult)]: the byte tail, FCS and A-MPDU
+        walk."""
+        out = []
+        pb = arr[:, :nb_pad]
+        # one bulk tolist() per group (per-packet numpy scalars are slow)
+        ev = arr[:, nb_pad:nb_pad + 4 * n_ev].copy().view(np.float32).tolist()
+        sb = arr[:, nb_pad + 4 * n_ev].astype(bool).tolist()
+        for j, (i, p) in enumerate(items):
+            if p.mu and not sb[j]:
+                # MU SIG-B CRC-8 mismatch vs the SERVICE field: the (mcs,
+                # len) decode is unreliable; drop, as the reference does
+                # (signalParserVhtB)
+                continue
+            psdu = pb[j, 2:2 + p.psdu_len].tobytes()
+            # the joint EVM SNR is the mean of the per-stream ones
+            r = assemble_psdu(
+                p.mod.fmt, p.mod, psdu, p.ampdu, p.cfo_hz, p.snr,
+                sum(ev[j]) / n_ev, sssnr=tuple(ev[j]),
+                sigb_ok=(sb[j] if p.mod.fmt == F.VHT else None))
+            r.mu = p.mu
+            out.append((i, r))
+        return out
 
     def _run_plans(self, cap_dev, npad, plans):
         """Dispatch all groups, fetch + assemble. Returns [(trigger_idx,
@@ -1262,13 +1322,19 @@ class SisoReceiver:
         """SU dispatch plus (when mu_gid is set) the two-stage MU chain: the
         MU SIG-B round trip overlaps the SU decode dispatches. Returns futs
         for _finish_plans."""
-        mu_cands = self._plan_mu_batch(cap_len, meta, n)
-        sigb_futs = (self._dispatch_mu_sigb(cap_dev, npad, mu_cands)
-                     if mu_cands else [])
+        mu_cands = []
+        if self.mu_gid is not None:
+            with span("rx.plan"):
+                mu_cands = self._plan_mu_batch(cap_len, meta, n)
+        sigb_futs = []
+        if mu_cands:
+            with span("rx.sig_dispatch"):
+                sigb_futs = self._dispatch_mu_sigb(cap_dev, npad, mu_cands)
         futs = self._dispatch_plans(cap_dev, npad, plans)
         if sigb_futs:
-            futs += self._dispatch_plans(cap_dev, npad,
-                                         self._plan_mu_data(sigb_futs))
+            with span("rx.plan"):
+                mu_plans = self._plan_mu_data(sigb_futs)
+            futs += self._dispatch_plans(cap_dev, npad, mu_plans)
         return futs
 
     # -- downlink MU-STA decode (streaming, batched) -----------------------
@@ -1368,7 +1434,7 @@ class SisoReceiver:
         n_len = MU_SIGB_LEN[self.bw]
         plans = []
         for items, fetch in sigb_futs:
-            wd = self._wait(fetch)
+            wd = self._wait(fetch, "mu_sigb")
             for j, (i, c) in enumerate(items):
                 bits = (int(wd[j]) >> np.arange(n_len + 4)) & 1
                 mcs = int(bits[n_len:n_len + 4] @ (1 << np.arange(4)))

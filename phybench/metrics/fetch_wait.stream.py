@@ -1,0 +1,12 @@
+"""The share of the traced slice in which the host waited for the device's
+results (trigger, meta and decoded bytes): summed `rx.fetch_wait` spans
+over the slice's `window_s`."""
+from phybench.metrics import spans
+
+
+def read(ctx):
+    w = spans.named(spans.recorded() or (), "rx.fetch_wait")
+    win = spans.window_s(ctx)
+    if not w or not win:
+        return None
+    return spans.total_s(w) / win
