@@ -23,7 +23,11 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      MCS9 80 MHz (1800 B, batch 256), the inputs of bench.py's two RX rows:
      every packet must decode to the exact MPDU with a good FCS, the first
      rows must equal the port's CPU run, and launch counters must show that
-     each step went through both kernels;
+     each step's first (eager) call went through both kernels; then each
+     step's CUDA graph, captured on its second call and replayed on its
+     third: both outputs equal to the eager call's (`torch.equal`), one
+     capture, GRAPH_REPLAYS up by one per replay, and no wrapper call in a
+     replay;
   7. times at the main path's shapes: each kernel per wrapper call (CUDA
      events, median of 10 after warm-up, in turns with the torch.gather
      call where there is one), the host's time to issue one call
@@ -183,7 +187,7 @@ from ieee80211_tpu_torch.mac import (MacConfig, aggregate_vht, build_udp_mpdu,
 from ieee80211_tpu_torch.mu import (map_q_to_grid, ndp_ltf_channel,
                                     vht_channel_feedback, zf_q)
 from ieee80211_tpu_torch.mu import sounding
-from ieee80211_tpu_torch.models import RxPipeline
+from ieee80211_tpu_torch.models import RxPipeline, pipeline
 from ieee80211_tpu_torch.ops import coding, sync
 from ieee80211_tpu_torch.ops.cuda import build
 from ieee80211_tpu_torch.ops.cuda import gather as kg
@@ -1450,6 +1454,29 @@ def main() -> int:
     for bw, (vit, sli) in per_step.items():
         print(f"launches in the {bw} MHz step: viterbi {vit}, slice {sli}")
         check((vit, sli) == (2, 2), f"{bw} MHz step launched 2 + 2 kernels")
+    # the step's CUDA graph: captured on the second call, replayed on the
+    # second and third, each replay equal to the eager first call
+    with torch.inference_mode():
+        for bw, (cell, pipe, x2, t0, _) in rows.items():
+            xd, td = torch.from_numpy(x2).to(dev), torch.from_numpy(t0).to(dev)
+            caps, reps = pipeline.GRAPH_CAPTURES, pipeline.GRAPH_REPLAYS
+            second = pipe.step(xd, td)
+            torch.cuda.synchronize()
+            check((pipeline.GRAPH_CAPTURES - caps,
+                   pipeline.GRAPH_REPLAYS - reps) == (1, 1),
+                  f"{bw} MHz step: the second call captured and replayed")
+            before = (kv.LAUNCHES, kg.LAUNCHES, pipeline.GRAPH_REPLAYS)
+            third = pipe.step(xd, td)
+            torch.cuda.synchronize()
+            check((kv.LAUNCHES, kg.LAUNCHES, pipeline.GRAPH_REPLAYS)
+                  == (before[0], before[1], before[2] + 1),
+                  f"{bw} MHz step: one replay, no wrapper call")
+            for out in (second, third):
+                check(list(out) == list(outs[bw])
+                      and all(torch.equal(out[k], outs[bw][k]) for k in out),
+                      f"{bw} MHz step: replay == eager call")
+            print(f"{bw} MHz step graph: captured once, 2 replays equal to "
+                  f"the eager call (bits, ltf_start, cfo, snr, lsig_ok)")
 
     for bw, (cell, pipe, x2, t0, mpdu) in rows.items():
         out = {k: v.cpu() for k, v in outs[bw].items()}

@@ -7,11 +7,21 @@ L-SIG validation, per-symbol demod and the 64-state Viterbi run batched on
 the device of the input; the two window slices and the two Viterbi decodes
 of a step launch the hand-written CUDA kernels when that device is a GPU.
 
+On a GPU, `RxStep.forward` replays the step as one CUDA graph per input
+key (device, the shapes and dtypes of both inputs, inference mode): the
+first call of a key runs the stages op by op, the second captures them,
+and every later call copies its inputs into the graph's, replays it and
+returns clones of its outputs. A replay calls no kernel wrapper, so the
+`LAUNCHES` counters of ops/cuda/ do not count the kernels it launches;
+GRAPH_CAPTURES, GRAPH_REPLAYS and EAGER_STEPS below count the paths.
+
 The receive path has no trained weights: its state is the constant tables
 that `tables_from_numpy` builds, held as registered buffers.
 """
 from __future__ import annotations
 
+import collections
+import threading
 from typing import Dict
 
 import numpy as np
@@ -27,6 +37,15 @@ from ..utils.riq import r2c
 
 OFF_LSIG = 128
 OFF_NLLTF = 448
+
+GRAPH_CAP = 4          # captured graphs kept per RxStep (least recently used
+                       # dropped); each holds a private memory pool
+GRAPH_CAPTURES = 0     # CUDA graphs captured by RxStep.forward so far
+GRAPH_REPLAYS = 0      # their replays (one per graphed call)
+EAGER_STEPS = 0        # CUDA calls run op by op: the first call of a key
+# one capture at a time in the process (CUDA graphs allow no more), and a
+# graph's static inputs and outputs belong to one call at a time
+_GRAPH_LOCK = threading.Lock()
 
 
 def _pilot_index(mod: Mod) -> int:
@@ -100,15 +119,28 @@ def tables_from_numpy(mod: Mod, n_sym: int) -> Dict[str, np.ndarray]:
     return out
 
 
+def graph_key(x2: torch.Tensor, t0: torch.Tensor) -> tuple:
+    """What selects a step's CUDA graph: the device, the shapes and dtypes
+    of both inputs, and whether inference mode is on."""
+    return (x2.device, tuple(x2.shape), x2.dtype, t0.device,
+            tuple(t0.shape), t0.dtype, torch.is_inference_mode_enabled())
+
+
+class _Graphed:
+    """One captured step: its static inputs, the graph, its static outputs,
+    and an event behind the last call's clones."""
+    __slots__ = ("x2", "t0", "graph", "out", "done")
+
+
 class RxStep(nn.Module):
     """The receive step for a static (Mod, n_sym) config (any bw).
 
     forward(x2: [B, W, 2] float32 I/Q, t0: [B] int32) -> dict with
     bits [B, n_bits] int32 descrambled data bits, ltf_start [B] int32,
     cfo [B] float32, snr [B] float32, lsig_ok [B] bool: the keys and dtypes
-    of the JAX step. csi_weight: per-tone |H|^2 LLR weighting
-    (`demod.demod_data_siso`); False gives the reference's unweighted
-    demap.
+    of the JAX step, fresh tensors on every call. csi_weight: per-tone
+    |H|^2 LLR weighting (`demod.demod_data_siso`); False gives the
+    reference's unweighted demap.
     """
 
     def __init__(self, mod: Mod, n_sym: int, csi_weight: bool = True):
@@ -119,6 +151,16 @@ class RxStep(nn.Module):
         self.q = tables.NFFT[mod.bw] // 64
         for name, arr in tables_from_numpy(mod, n_sym).items():
             self.register_buffer(name, torch.from_numpy(arr))
+        # graph key -> _Graphed, and the keys seen once (eager), both
+        # least recently used first and GRAPH_CAP long at most
+        self._graphs: "collections.OrderedDict" = collections.OrderedDict()
+        self._seen: "collections.OrderedDict" = collections.OrderedDict()
+
+    def _apply(self, fn, *args, **kwargs):
+        # a graph reads the tables where they lay when it was captured
+        self._graphs.clear()
+        self._seen.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     def data_offset(self) -> int:
         mod = self.mod
@@ -137,7 +179,7 @@ class RxStep(nn.Module):
     def _fft(self, x: torch.Tensor) -> torch.Tensor:
         return demod.fft_syms(x, self.dft_re, self.dft_im)
 
-    # -- the step's stages, in order: forward composes them, and
+    # -- the step's stages, in order: _eager composes them, and
     # perf/stages.py times each one alone on the step's own tensors --------
     def sync_front(self, x2: torch.Tensor, t0: torch.Tensor):
         """1. STF coarse CFO, LTF plateau timing, fine CFO: (ltf_start,
@@ -220,29 +262,105 @@ class RxStep(nn.Module):
         return coding.descramble(bits, self.prbs, self.seed_inv)
 
     def forward(self, x2: torch.Tensor, t0: torch.Tensor):
-        """The nine stages in order, each a span `step.<stage>` under the
-        call's `step` (utils/metrics.py)."""
+        """The step under the call's span `step` (utils/metrics.py): op by
+        op (`_eager`) on the CPU and on a key's first CUDA call, else a
+        replay of the key's CUDA graph (`step.replay`), captured on the
+        second call (`step.capture`)."""
         with call_span("step"):
-            with span("step.sync_front"):
-                ltf_start, cfo, snr = self.sync_front(x2, t0)
-            with span("step.window"):
-                z2 = self.window(x2, ltf_start)
-            with span("step.derotate"):
-                z = self.derotate(z2, cfo)
-            with span("step.grids"):
-                ltf_g, sig_g, nl_g, data_g = self.grids(z)
-            with span("step.lsig"):
-                lchan, lsig_ok = self.lsig(ltf_g, sig_g)
-            with span("step.chan_est"):
-                chan = self.chan_est(lchan, nl_g)
-            with span("step.data_llrs"):
-                llrs = self.data_llrs(data_g, chan)
-            with span("step.viterbi"):
-                bits = self.viterbi(llrs)
-            with span("step.descramble"):
-                bits = self.descramble(bits)
-            return dict(bits=bits, ltf_start=ltf_start, cfo=cfo, snr=snr,
-                        lsig_ok=lsig_ok)
+            if x2.device.type != "cuda":
+                return self._eager(x2, t0)
+            return self._graphed(x2, t0)
+
+    def _eager(self, x2: torch.Tensor, t0: torch.Tensor):
+        """The nine stages in order, each a span `step.<stage>`."""
+        with span("step.sync_front"):
+            ltf_start, cfo, snr = self.sync_front(x2, t0)
+        with span("step.window"):
+            z2 = self.window(x2, ltf_start)
+        with span("step.derotate"):
+            z = self.derotate(z2, cfo)
+        with span("step.grids"):
+            ltf_g, sig_g, nl_g, data_g = self.grids(z)
+        with span("step.lsig"):
+            lchan, lsig_ok = self.lsig(ltf_g, sig_g)
+        with span("step.chan_est"):
+            chan = self.chan_est(lchan, nl_g)
+        with span("step.data_llrs"):
+            llrs = self.data_llrs(data_g, chan)
+        with span("step.viterbi"):
+            bits = self.viterbi(llrs)
+        with span("step.descramble"):
+            bits = self.descramble(bits)
+        return dict(bits=bits, ltf_start=ltf_start, cfo=cfo, snr=snr,
+                    lsig_ok=lsig_ok)
+
+    def _graphed(self, x2: torch.Tensor, t0: torch.Tensor):
+        """A CUDA call: op by op at a key's first sight, else its graph."""
+        global EAGER_STEPS
+        key = graph_key(x2, t0)
+        with _GRAPH_LOCK:
+            if key in self._graphs or key in self._seen:
+                with torch.cuda.device(x2.device):
+                    return self._replay(key, x2, t0)
+            _remember(self._seen, key, True)
+            EAGER_STEPS += 1
+        return self._eager(x2, t0)
+
+    def _replay(self, key: tuple, x2: torch.Tensor, t0: torch.Tensor):
+        """Replay the key's graph on the current stream, capturing it first
+        if it has none; the outputs cloned out of the graph's."""
+        global GRAPH_REPLAYS
+        g = self._graphs.get(key)
+        if g is None:
+            with span("step.capture"):
+                g = self._capture(x2, t0)
+            self._seen.pop(key, None)
+            _remember(self._graphs, key, g)
+        else:
+            self._graphs.move_to_end(key)
+        with span("step.replay"):
+            cur = torch.cuda.current_stream()
+            cur.wait_event(g.done)     # the last call's clones, on any stream
+            g.x2.copy_(x2)
+            g.t0.copy_(t0)
+            g.graph.replay()
+            out = {k: v.clone() for k, v in g.out.items()}
+            g.done.record(cur)
+        GRAPH_REPLAYS += 1
+        return out
+
+    def _capture(self, x2: torch.Tensor, t0: torch.Tensor) -> _Graphed:
+        """Capture `_eager` on copies of the inputs, after one warm-up on
+        the capture's own stream (PyTorch's CUDA graph recipe), without
+        blocking other threads' CUDA calls. PyTorch ties its default CUDA
+        generator to every capture: another thread that draws from it
+        while the capture is underway raises (the port draws only from
+        generators of its own)."""
+        global GRAPH_CAPTURES
+        g = _Graphed()
+        g.x2, g.t0 = x2.clone(), t0.clone()
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._eager(g.x2, g.t0)
+        cur.wait_stream(side)
+        g.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            g.out = self._eager(g.x2, g.t0)
+        g.done = torch.cuda.Event()
+        GRAPH_CAPTURES += 1
+        return g
+
+
+def _remember(lru: "collections.OrderedDict", key, value) -> None:
+    """Put key last in lru, dropping the least recently used beyond
+    GRAPH_CAP."""
+    lru[key] = value
+    lru.move_to_end(key)
+    while len(lru) > GRAPH_CAP:
+        lru.popitem(last=False)
 
 
 class RxPipeline(nn.Module):

@@ -20,8 +20,9 @@ input, cloned once before timing, so no stage sees what another wrote):
 
 For each stage: one call between CUDA events (median of ITERS), then,
 separately so that the profiler stays out of those times, its kernels' time
-and count per call (torch.profiler); the whole step beside the sum of its
-stages. Then the ROADMAP ground rules' layout choices, each stage's form
+and count per call (torch.profiler); the whole step op by op
+(`RxStep._eager`, as a CPU call and a key's first CUDA call run it; later
+CUDA calls replay its graph) beside the sum of its stages. Then the ROADMAP ground rules' layout choices, each stage's form
 beside one PyTorch call computing the same function on the same tensors,
 timed in turns (call and device-only time) and checked to agree:
 
@@ -165,7 +166,7 @@ def measure(batch: int = HEADLINE["batch"], iters: int = ITERS, *,
     x2, t0 = (torch.from_numpy(a).to(dev) for a in (b.x2, b.t0))
     with torch.inference_mode():
         calls = stage_calls(step, x2, t0)
-        whole = ("step", lambda: step(x2, t0))
+        whole = ("step", lambda: step._eager(x2, t0))
         res = {name: {"ms": median_ms(fn, dev, iters)}
                for name, fn in calls + [whole]}
         for name, fn in calls + [whole]:

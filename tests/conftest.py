@@ -26,3 +26,8 @@ if os.environ.get("RUN_TPU_TESTS") != "1":
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers",
+                            "card: needs a CUDA device; skips without one")
