@@ -91,6 +91,7 @@ class DecodeStats:
 
 SPAN_CAP = 1 << 20
 CLOCK = "phy.clock"    # the range that ties perf_counter_ns to the trace
+CLOCK_READS = 3         # phy.clock ranges a stretch picks its anchor from
 
 
 class Span(NamedTuple):
@@ -112,6 +113,7 @@ class SpanStore:
         self.spans: List[Span] = []
         self.dropped = 0
         self.anchor = None      # perf_counter_ns read as `phy.clock` opens
+        self.anchor_at = -1     # its range among the trace's phy.clock events
         self.anchor_tid = None
         self._live = False      # the last public call found the profiler on
 
@@ -131,12 +133,27 @@ class SpanStore:
         self._live = False
 
     def _begin(self) -> None:
-        """A new stretch: an empty store, and the clock's anchor (read just
-        before `phy.clock` opens)."""
+        """A new stretch: an empty store, and the clock's anchor. The first
+        range of a profile takes 0.1-0.4 ms longer than later ones to read
+        its timestamp, so a first `phy.clock` range bears that; of the
+        `CLOCK_READS` ranges after it, the anchor is the start read just
+        before the range that opened soonest after its read (a thread
+        descheduled between the two makes one range late, not all), and
+        `anchor_at` that range's place among the trace's `phy.clock`
+        events."""
         self.clear()
-        self.anchor = time.perf_counter_ns()
         with record_function(CLOCK):
             pass
+        reads = []
+        for _ in range(CLOCK_READS):
+            t0 = time.perf_counter_ns()
+            rf = record_function(CLOCK)
+            rf.__enter__()
+            reads.append((time.perf_counter_ns() - t0, t0))
+            rf.__exit__(None, None, None)
+        k = min(range(CLOCK_READS), key=lambda i: reads[i][0])
+        self.anchor = reads[k][1]
+        self.anchor_at = k - CLOCK_READS
         self.anchor_tid = threading.get_native_id()
 
     def _add(self, s: Span) -> None:
@@ -153,11 +170,12 @@ class SpanStore:
         if isinstance(trace, str):
             with open(trace) as f:
                 trace = json.load(f)
-        clock = [e for e in trace.get("traceEvents", [])
-                 if e.get("name") == CLOCK and e.get("ph") == "X"]
-        if not clock or self.anchor is None:
+        clock = sorted((e for e in trace.get("traceEvents", [])
+                        if e.get("name") == CLOCK and e.get("ph") == "X"),
+                       key=lambda e: float(e["ts"]))
+        if self.anchor is None or len(clock) < -self.anchor_at:
             return []
-        c = clock[-1]
+        c = clock[self.anchor_at]
         off = float(c["ts"]) - self.anchor / 1e3
         return [{"ph": "X", "cat": "phy_span", "name": s.name,
                  "pid": c["pid"], "tid": s.tid, "ts": off + s.start / 1e3,

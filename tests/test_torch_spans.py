@@ -11,6 +11,7 @@ the trace's `user_annotation` events, and `SPANS.events` puts them within
 100 us of those. The outputs are the same with the profiler on and off.
 """
 import json
+import time
 from collections import Counter
 
 import numpy as np
@@ -201,6 +202,28 @@ def test_a_new_stretch_clears_the_store(siso_caps):
     third = {s.call for s in SPANS}
     assert len(third) == 1 and third != second
     assert SPANS.anchor is not None
+
+
+def test_a_late_clock_range_is_not_the_anchor(monkeypatch, tmp_path):
+    """A `phy.clock` range that opens 3 ms after its read (its thread
+    descheduled between the two) is passed over: the spans stay on their
+    mirrors."""
+    late = iter([False] * metrics.CLOCK_READS + [True])
+
+    class Late(metrics.record_function):
+        def __enter__(self):
+            if self.name == metrics.CLOCK and next(late, False):
+                time.sleep(0.003)
+            return super().__enter__()
+    monkeypatch.setattr(metrics, "record_function", Late)
+
+    def call():
+        with metrics.call_span("rx.call"):
+            with metrics.span("rx.plan"):
+                pass
+    _, prof = _profiled(call)
+    assert SPANS.anchor_at != -1
+    _mirrored(list(SPANS), prof, tmp_path, tol_us=100.0)
 
 
 def test_the_store_counts_what_it_drops(siso_caps, monkeypatch):
